@@ -1,0 +1,90 @@
+"""Batched tournaments on bitboard state — the port of
+``train/tournament.py`` (``play_games``/``tally``), of
+``train/ppo_trainer.py::net_tournament_policy``, and of the two-colour
+protocol of ``cli/eval_checkpoint.py``.
+
+Games step in lockstep through ``bit_step`` (so on the card every ply
+launches kernel K2) until all have ended or ``max_plies`` plies ran.
+Colours are fixed per call (black = first policy).  Random openings keep
+``OthelloEnv``'s semantics (othello.py:151-199): each game draws
+``2 * U{0..init_rand_steps//2}`` and its first that many plies, from
+either side, are uniform random legal moves.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from gymothelloenv_tpu_torch.core import bitboard as bb
+from gymothelloenv_tpu_torch.core.featurize import make_state
+from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.envs.bit_vector_env import draw_rand_left
+from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
+from gymothelloenv_tpu_torch.utils.device import resolve_device
+
+PolicyFn = Callable[[bb.BitState, "torch.Generator | None"], torch.Tensor]
+
+
+def play_games(act_black: PolicyFn, act_white: PolicyFn, num_games: int,
+               init_rand_steps: int = 0, max_plies: int = 0,
+               generator: torch.Generator | None = None,
+               cfg: EnvConfig = EnvConfig(), device=None) -> torch.Tensor:
+    """Play ``num_games`` games; returns winners int8 (N,) (+1 white,
+    -1 black, 0 draw or unfinished).  ``max_plies <= 0`` means 64, enough
+    for any legal game."""
+    device = resolve_device(device)
+    if max_plies <= 0:
+        max_plies = cfg.num_actions
+    state = bb.bit_reset(num_games, device)
+    rand_left = draw_rand_left(num_games, init_rand_steps, generator, device)
+    ply = 0
+    while ply < max_plies and not bool(state.terminated.all()):
+        a_rand = bb.random_legal_bit(state.legal, generator=generator)
+        a_black = act_black(state, generator)
+        a_white = act_white(state, generator)
+        action = torch.where(rand_left > 0, a_rand,
+                             torch.where(state.turn == -1, a_black, a_white))
+        stepped = bb.step_cfg(state, action, cfg).state
+        live = ~state.terminated
+        state = bb.select_state(live, stepped, state)
+        rand_left = torch.where(live, (rand_left - 1).clamp(min=0),
+                                rand_left)
+        ply += 1
+    return state.winner
+
+
+def tally(winners: torch.Tensor):
+    """(black_wins, draws, white_wins) as ints."""
+    return (int((winners == -1).sum()), int((winners == 0).sum()),
+            int((winners == 1).sum()))
+
+
+def net_tournament_policy(net: torch.nn.Module) -> PolicyFn:
+    """Wrap a ``PolicyNet`` as a sampling tournament policy
+    (``Policy.act`` served over pipes, ppo_run_self_play.py:383-389)."""
+    def act(state: bb.BitState, generator=None) -> torch.Tensor:
+        with torch.inference_mode():
+            logits, _ = net(make_state(state))
+            dist = MaskedCategorical(logits=logits,
+                                     mask=bb.unpack_flat(state.legal))
+            return dist.sample(generator=generator)
+    return act
+
+
+def evaluate(act: PolicyFn, opponent: PolicyFn, num_games: int,
+             init_rand_steps: int = 10,
+             generator: torch.Generator | None = None,
+             cfg: EnvConfig = EnvConfig(), device=None):
+    """``num_games // 2`` games with ``act`` as black, as many as white
+    (the ``cli/eval_checkpoint.py`` protocol).  Returns ``(wins, draws,
+    losses)`` for ``act``."""
+    n = num_games // 2
+    as_black = play_games(act, opponent, n, init_rand_steps,
+                          generator=generator, cfg=cfg, device=device)
+    as_white = play_games(opponent, act, n, init_rand_steps,
+                          generator=generator, cfg=cfg, device=device)
+    wins = int((as_black == -1).sum()) + int((as_white == 1).sum())
+    draws = int((as_black == 0).sum()) + int((as_white == 0).sum())
+    return wins, draws, 2 * n - wins - draws

@@ -1,0 +1,47 @@
+"""Import hygiene of the PyTorch port: no module of the port package and not
+``chip_smoke.py`` imports JAX, flax, msgpack or the JAX package."""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+PORT = os.path.join(ROOT, "gymothelloenv_tpu_torch")
+FORBIDDEN = {"jax", "flax", "msgpack", "gymothelloenv_tpu"}
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PORT):
+        files += [os.path.join(dirpath, n) for n in sorted(names)
+                  if n.endswith(".py")]
+    return files
+
+
+def _top_level_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_top_level_imports(path)) & FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_forbidden_match_is_exact():
+    """``gymothelloenv_tpu_torch`` shares the JAX package's prefix and
+    must not be caught by the rule."""
+    names = set()
+    for path in _port_files():
+        names |= set(_top_level_imports(path))
+    assert "gymothelloenv_tpu_torch" in names
+    assert "gymothelloenv_tpu" not in names

@@ -1,0 +1,76 @@
+"""Shared helpers for the PyTorch port's parity tests (tests/test_torch_*.py):
+random reachable positions made with the JAX engine from a numpy seed, and
+conversion of JAX word pairs to the port's 64-bit words."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from gymothelloenv_tpu.core import bitboard as bb
+from gymothelloenv_tpu_torch.core import bitboard as tb
+
+
+def pair(p) -> np.ndarray:
+    """JAX word pair ``(w0, w1)`` -> uint32 (..., 2)."""
+    return np.stack([np.asarray(p[0]), np.asarray(p[1])], axis=-1)
+
+
+def word(p):
+    """JAX word pair -> the port's int64 word tensor."""
+    return tb.pack_pair(pair(p))
+
+
+def to_port(s: bb.BitState) -> tb.BitState:
+    return tb.BitState(
+        black=word(s.black), white=word(s.white),
+        turn=torch.from_numpy(np.asarray(s.turn).astype(np.int8)),
+        legal=word(s.legal),
+        terminated=torch.from_numpy(np.array(s.terminated)),
+        winner=torch.from_numpy(np.asarray(s.winner).astype(np.int8)))
+
+
+def assert_same_state(port: tb.BitState, ref: bb.BitState, msg=""):
+    for name in ("black", "white", "legal"):
+        np.testing.assert_array_equal(tb.unpack_pair(getattr(port, name)),
+                                      pair(getattr(ref, name)),
+                                      err_msg=f"{name} {msg}")
+    for name in ("turn", "terminated", "winner"):
+        np.testing.assert_array_equal(getattr(port, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=f"{name} {msg}")
+
+
+@functools.cache
+def _jstep():
+    return jax.jit(bb.bit_step)
+
+
+def legal_lists(legal_pair) -> np.ndarray:
+    """bool (N, 64) legal actions of a JAX word pair."""
+    flat = np.asarray(bb.unpack2(legal_pair))
+    return flat.reshape(flat.shape[0], 64)
+
+
+def random_states(n: int, seed: int, max_plies: int = 60) -> bb.BitState:
+    """``n`` positions reached by uniformly random legal play from the
+    opening, each after its own number of plies in [0, max_plies); games
+    that end early stay at their terminal position."""
+    rng = np.random.RandomState(seed)
+    budget = rng.randint(0, max_plies, n)
+    s = bb.bit_reset((n,))
+    step = _jstep()
+    for ply in range(max_plies):
+        legal = legal_lists(s.legal)
+        live = (budget > ply) & ~np.asarray(s.terminated)
+        if not live.any():
+            break
+        actions = np.zeros(n, np.int32)
+        for i in np.nonzero(live)[0]:
+            actions[i] = rng.choice(np.nonzero(legal[i])[0])
+        new = step(s, jnp.asarray(actions)).state
+        s = jax.tree.map(
+            lambda a, b: jnp.where(jnp.asarray(live), a, b), new, s)
+    return s
