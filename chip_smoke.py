@@ -4,11 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's kernels with nvcc, holds each kernel against its plain
-PyTorch version, then drives the main path: the fused random-play rollout
-(kernel K1) at the bench protocol, and the wide2 policy net against the
-greedy opponent through the bitboard engine (kernel K2 on every ply).  It
-reads no file outside gymothelloenv_tpu_torch/ (the net is a seeded init)
-and exits non-zero on any failure, without a CUDA card, or when run
+PyTorch version, then drives the main paths, each with the launch counts
+set to 0 just before it and read just after:
+
+  * the fused random-play rollout (kernel K1) at the bench protocol, and
+    the wide2 policy net against the greedy opponent through the bitboard
+    engine (kernel K2 on every ply);
+  * the rollout-variant profiler (kernel K3: K1 with one component stubbed
+    out, or at another unroll / block size), every configuration of
+    gymothelloenv_tpu_torch/scripts/bench_rollout_variants.py at the bench
+    protocol;
+  * PPO self-play training: PPOSelfPlayTrainer at wide2 with the tuned
+    recipe (N 1024, T 64, lr 2.5e-4, entropy 0.01) for 3 updates and one
+    200-game evaluation (K2 on every ply of collection and evaluation);
+    then one ppo_update on the card against the same update on the CPU
+    from the same params, rollout and shuffle words, at a reduced size.
+
+It reads no file outside gymothelloenv_tpu_torch/ (the nets are seeded
+inits) and exits non-zero on any failure, without a CUDA card, or when run
 outside a checkout of the repository.
 
 Output: one flushed line before and after every phase; then a JSON line
@@ -21,6 +34,7 @@ so the net on the card agrees with the CPU to float32 tolerance.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,6 +58,14 @@ K2_OPS_PER_BOARD = 2 * 166
 # the sampler and a quarter of a Philox4x32-10 call (~100).  The mover's
 # second flood runs only when the opponent must pass and is not counted.
 K1_OPS_PER_PLY = 2 * (187 + 166 + 10) + 35 + 25
+# K3's variants, K1's count with the stubbed term removed: nosample drops
+# the sampler (35) and, its random word unused, the Philox share (25) for
+# l & -l on 64 bits (2 x 2); noflips drops the flips flood (2 x 187);
+# nopass drops the mover-again flood, which K1's count already leaves out.
+K3_OPS_PER_PLY = {"full": K1_OPS_PER_PLY,
+                  "nosample": K1_OPS_PER_PLY - 35 - 25 + 2 * 2,
+                  "noflips": K1_OPS_PER_PLY - 2 * 187,
+                  "nopass": K1_OPS_PER_PLY}
 
 SEED = 0
 LEGAL_BOARDS = 1_000_003      # odd on purpose: the ragged edge
@@ -54,6 +76,31 @@ PARITY_STEPS = 256
 EVAL_GAMES = 1024             # half as black, half as white
 EVAL_RAND_STEPS = 10
 WIDTH_MULT, HIDDEN = 2, 1024  # wide2 (data/selfplay/ppo_wide2_4k.msgpack)
+VARIANT_REPS = 64             # chunks per timed K3 configuration
+# Tuned training recipe (RESULTS.md: N 1024, lr 2.5e-4, entropy 0.01, T 64).
+TRAIN_ENVS, TRAIN_STEPS, TRAIN_UPDATES = 1024, 64, 3
+TRAIN_LR, TRAIN_ENTROPY = 2.5e-4, 0.01
+TRAIN_TEST_GAMES = 200
+REF_ENVS, REF_STEPS = 64, 16  # card-vs-CPU update, cut from N 1024, T 64
+# Card vs CPU, fp32 sums in other orders on the two devices.  A one-step
+# update (1 epoch, 1 minibatch) moves each parameter by lr * g / (|g| +
+# eps), so a gradient error dg moves it by at most lr * dg / eps: 2.5e-8
+# for a dg of 1e-9 (1e-6 of the largest gradients).  The trainer's update
+# (4 epochs x 4 minibatches) lets rounding grow through the ReLU and clip
+# kinks over its 16 steps, so each parameter leaf is held relative to its
+# own largest delta; the card's update with a planted fault (PLANTS: other
+# shuffle words, another GAE lambda, another ratio clip, another
+# gradient-norm clip) must read above that limit.
+# The metrics (loss means) agree to rtol 1e-4 plus atol 1e-6: in the
+# one-step update the action loss is the mean of ratio x normalised
+# advantage over the whole batch, ~1e-8.
+REF_ONE_STEP_ATOL = 1e-6
+REF_PARAM_RTOL = 0.05
+REF_METRIC_RTOL, REF_METRIC_ATOL = 1e-4, 1e-6
+PLANTS = (("shuffle words", {}, SEED + 2),
+          ("gae_lambda 0.9", {"gae_lambda": 0.9}, SEED + 1),
+          ("clip_param 0.2", {"clip_param": 0.2}, SEED + 1),
+          ("max_grad_norm 1.0", {"max_grad_norm": 1.0}, SEED + 1))
 DEVICE_TYPE = "cuda"
 
 
@@ -136,6 +183,7 @@ def main():
     from gymothelloenv_tpu_torch.ops.legal_mask import (legal_mask,
                                                         legal_mask_plain)
     from gymothelloenv_tpu_torch.policies.scripted import greedy_policy
+    from gymothelloenv_tpu_torch.scripts import bench_rollout_variants as brv
     from gymothelloenv_tpu_torch.train import tournament as tour
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -312,13 +360,25 @@ def main():
     say(f"[eval_reference] ok: winners equal ({tour.tally(on_cpu)}); net "
         f"max abs err {net_err:.2e} (fp32, tolerance 1e-4)")
 
-    # 7. kernels line ---------------------------------------------------------
+    # 8. variants (K3: parity, then the profiler as its main path) ----------
+    k3 = _variants_phase(torch, tb, ro, brv, dev, words)
+
+    # 9. train (K2 on every ply) and 10. train_reference ----------------------
+    train = _train_phase(torch, legal_mask, dev)
+    _train_reference_phase(torch, dev)
+
+    # 11. kernels line --------------------------------------------------------
     rows = [
         dict(name="legal_mask", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/legal_mask.cu",
              replaces="gymothelloenv_tpu/ops/pallas_bitboard.py:76",
-             launches=launches["legal_mask"], library_ms=None,
+             launches=launches["legal_mask"] + train["k2_launches"],
+             launches_by_path={"eval": launches["legal_mask"],
+                               "train": train["k2_launches"]},
+             library_ms=None,
              equal=True, tolerance="exact", shape="2 x 512 boards",
+             train_shape="2 x 1024 boards",
+             train_ms=train["k2_ms"], train_call_ms=train["k2_call_ms"],
              ms_1m=k2_big["ms"], plain_ms_1m=k2_big["plain_ms"],
              bound_ms_1m=k2_big["bound_ms"], **k2),
         dict(name="rollout", route="cuda",
@@ -330,6 +390,11 @@ def main():
              words_ms=words_ms, words_plies=PARITY_STEPS,
              env_steps_per_sec=env_steps_per_s,
              plies_per_episode=plies_per_episode, **k1),
+        dict(name="rollout_variants", route="cuda",
+             source="gymothelloenv_tpu_torch/csrc/rollout.cu",
+             replaces="scripts/bench_rollout_variants.py:68",
+             library_ms=None, equal=True, tolerance="exact",
+             shape=f"{ROLLOUT_N} games x {ROLLOUT_STEPS} plies", **k3),
     ]
     say(json.dumps({"kernels": rows}))
     say(f"total_seconds {time.perf_counter() - t_start:.2f}")
@@ -338,6 +403,279 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _variants_phase(torch, tb, ro, brv, dev, words):
+    """K3: each variant against its plain loop on injected words and on
+    the profiler's own Philox chunk, full at every knob against K1, then
+    every profiler configuration.  Returns the kernels-line fields."""
+    steps = words.shape[0]
+    say(f"[variants] start: K3 variants vs plain on {ROLLOUT_N} games x "
+        f"{steps} plies of injected words and on a {ROLLOUT_STEPS}-ply "
+        f"Philox chunk; full at every knob vs K1")
+    s0 = ro.rollout_init(ROLLOUT_N, dev)
+    err = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def same(got, got_eps, want, want_eps, what):
+        for field in ("cur", "opp", "legal"):
+            require(torch.equal(getattr(got, field), getattr(want, field)),
+                    f"K3 {what} disagrees on {field}")
+        require(int(got_eps) == int(want_eps),
+                f"K3 {what}: {int(got_eps)} episodes, want {int(want_eps)}")
+        return max(word_bits_err(tb, getattr(got, f), getattr(want, f))
+                   for f in ("cur", "opp", "legal"))
+
+    for variant in ro.VARIANTS:
+        want, want_eps = ro.rollout_chunk_plain(s0, 0, steps, words,
+                                                variant)
+        for unroll in ro.UNROLLS if variant == "full" else (1,):
+            got, got_eps = ro.rollout_variant_chunk(s0, 0, steps, variant,
+                                                    unroll=unroll,
+                                                    words=words)
+            err = max(err, same(got, got_eps, want, want_eps,
+                                f"{variant} unroll {unroll} (words) vs "
+                                "plain"))
+    parity_ms = device_ms(torch, lambda: ro.rollout_variant_chunk(
+        s0, 0, steps, "full", words=words), 5)
+    # The profiler's kernels (Philox, ROLLOUT_STEPS plies from the
+    # opening), each against its variant's plain loop; full's against K1.
+    k1, k1_eps = ro.rollout_chunk(s0, SEED, ROLLOUT_STEPS)
+    plain_ms = {}
+    for variant in ro.VARIANTS:
+        start.record()
+        want, want_eps = ro.rollout_chunk_plain(s0, SEED, ROLLOUT_STEPS,
+                                                variant=variant)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[variant] = start.elapsed_time(end)
+        for name, knobs in brv.CONFIGS:
+            if knobs["variant"] != variant:
+                continue
+            got, got_eps = ro.rollout_variant_chunk(s0, SEED, ROLLOUT_STEPS,
+                                                    **knobs)
+            err = max(err, same(got, got_eps, want, want_eps,
+                                f"{name} (Philox) vs plain"))
+            if variant == "full":
+                same(got, got_eps, k1, k1_eps, f"{name} vs K1")
+    say(f"[variants] parity ok: 4 variants (full at unroll 1/2/4) exact vs "
+        f"plain on {steps} plies of words (kernel {parity_ms:.4f} ms); all "
+        f"8 configurations exact vs plain on the {ROLLOUT_STEPS}-ply Philox "
+        f"chunk (plain " + ", ".join(f"{v} {ms:.1f} ms" for v, ms in
+                                     plain_ms.items())
+        + "); full at unroll 1/2/4 and 32/64/128 threads equals K1")
+    # K1 under the profiler's protocol (every chunk from the opening, not
+    # chained as in [rollout]), to set K3's times beside K1's.
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    start.record()
+    for i in range(VARIANT_REPS):
+        ro.rollout_chunk(s0, 1000 + i, ROLLOUT_STEPS, episodes=total)
+    end.record()
+    torch.cuda.synchronize()
+    k1_restart_ms = start.elapsed_time(end) / VARIANT_REPS
+    say(f"[variants] K1 from the opening each chunk: {k1_restart_ms:.4f} "
+        "ms/chunk")
+
+    # Main path: the profiler's configurations.
+    ro.rollout_variant_chunk.launches = 0
+    results = brv.run(ROLLOUT_N, ROLLOUT_STEPS, VARIANT_REPS, dev,
+                      out=lambda line: say(f"[variants] {line}"))
+    launches = ro.rollout_variant_chunk.launches
+    require(launches > 0, "kernel rollout_variants was not launched on "
+            "its main path")
+    configs = {}
+    for name, knobs in brv.CONFIGS:
+        r = results[name]
+        ops = K3_OPS_PER_PLY[knobs["variant"]]
+        b_ms, b_by = bound_ms(48 * ROLLOUT_N + 8,
+                              ops * ROLLOUT_N * ROLLOUT_STEPS)
+        configs[name] = dict(ms=r["ms"], m_plies_per_s=r["plies_per_s"] / 1e6,
+                             bound_ms=b_ms, bound_by=b_by, ops_per_ply=ops,
+                             episodes=r["episodes"],
+                             plain_ms=plain_ms[knobs["variant"]])
+        say(f"[variants] {name:13s} bound {b_ms:.4f} ms ({b_by}, {ops} "
+            f"int ops/ply); {100 * b_ms / r['ms']:.1f}% of bound")
+    full = configs["full"]
+    say(f"[variants] ok: {launches} launches on the profiler path")
+    return dict(launches=launches, max_abs_err=err, ms=full["ms"],
+                plain_ms=plain_ms["full"], parity_ms=parity_ms,
+                parity_plies=steps, k1_restart_ms=k1_restart_ms,
+                bound_ms=full["bound_ms"], bound_by=full["bound_by"],
+                configs=configs)
+
+
+def _train_phase(torch, legal_mask, dev):
+    """PPOSelfPlayTrainer at wide2 with the tuned recipe: TRAIN_UPDATES
+    updates and one evaluation, K2's launches counted from 0."""
+    from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
+                                                           SelfPlayConfig)
+    say(f"[train] start: PPOSelfPlayTrainer wide2 (width_mult={WIDTH_MULT}, "
+        f"hidden={HIDDEN}), N={TRAIN_ENVS}, T={TRAIN_STEPS}, ppo_epochs 4, "
+        f"num_mini_batch 4, lr {TRAIN_LR}, entropy {TRAIN_ENTROPY}, "
+        f"{TRAIN_UPDATES} updates, then {TRAIN_TEST_GAMES}-game evals")
+    ppo_cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                        ppo_epochs=4, num_mini_batch=4,
+                        num_updates=TRAIN_UPDATES)
+    run_cfg = SelfPlayConfig(num_envs=TRAIN_ENVS, num_steps=TRAIN_STEPS,
+                             hidden_size=HIDDEN, width_mult=WIDTH_MULT,
+                             num_test_games=TRAIN_TEST_GAMES,
+                             test_interval=10 ** 9, seed=SEED)
+    records = []
+    seen = [0]
+
+    def log_fn(step, metrics):
+        metrics = dict(metrics, k2_launches=legal_mask.launches - seen[0])
+        seen[0] = legal_mask.launches
+        records.append(metrics)
+        say(f"[train] update {step}: collect {metrics['collect_seconds']:.3f}"
+            f" s, update {metrics['update_seconds']:.3f} s, "
+            f"transitions_per_sec={metrics['transitions_per_sec']:.1f}, "
+            f"value_loss={metrics['value_loss']:.5g} "
+            f"action_loss={metrics['action_loss']:.5g} "
+            f"entropy={metrics['entropy']:.5g}, episodes "
+            f"{int(metrics['episodes'])}, K2 launches "
+            f"{metrics['k2_launches']}, collector host syncs "
+            f"{metrics['collect_syncs']}")
+
+    # Main path: K2's count starts at 0 here.
+    legal_mask.launches = 0
+    t0 = time.perf_counter()
+    trainer = PPOSelfPlayTrainer(EnvConfig(num_disk_as_reward=True), ppo_cfg,
+                                 run_cfg, log_fn=log_fn, device=dev)
+    trainer.train(TRAIN_UPDATES, log_every=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rates = trainer.evaluate()
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    k2_launches = legal_mask.launches
+    require(len(records) == TRAIN_UPDATES, "the trainer skipped an update")
+    for m in records:
+        for key in ("value_loss", "action_loss", "entropy"):
+            require(math.isfinite(m[key]), f"{key} is not finite: {m[key]}")
+        require(m["k2_launches"] > 0, "K2 was not launched in collection")
+    require(all(0.0 <= r <= 1.0 for r in rates.values()), "bad win rate")
+    require(k2_launches > 0, "kernel legal_mask was not launched on the "
+            "training path")
+    # K2 at the collector's shape: bit_step stacks both sides of N games.
+    b = trainer.sp_state.env
+    m = torch.cat([b.black, b.white])
+    o = torch.cat([b.white, b.black])
+    k2_ms = device_ms(torch, lambda: legal_mask(m, o), 200)
+    k2_call_ms = cuda_ms(torch, lambda: legal_mask(m, o), 200)
+    collect_s = [r["collect_seconds"] for r in records]
+    share = [r["k2_launches"] * k2_ms / 1e3 / c
+             for r, c in zip(records, collect_s)]
+    say(f"[train] ok: {TRAIN_UPDATES} updates in {train_s:.2f} s; eval "
+        f"win%(rand)={rates['rand']:.3f} win%(greedy)={rates['greedy']:.3f} "
+        f"in {eval_s:.2f} s; K2 {k2_launches} launches on the training path,"
+        f" {k2_ms:.5f} ms each on the device at 2 x {TRAIN_ENVS} boards "
+        f"({k2_call_ms:.5f} ms per wrapper call), K2 device share of "
+        f"collection {', '.join(f'{100 * x:.3f}%' for x in share)}")
+    return dict(k2_launches=k2_launches, k2_ms=k2_ms, k2_call_ms=k2_call_ms)
+
+
+def _train_reference_phase(torch, dev):
+    """ppo_update on the card and on the CPU from the same params, the
+    same rollout (collected on the card) and the same shuffle words: once
+    as a single optimizer step, once with the trainer's epochs and
+    minibatches.  The latter is also run on the card with a planted fault
+    (PLANTS) to show that its tolerance sees such a fault."""
+    import dataclasses
+    from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, Transition,
+                                                    make_optimizer,
+                                                    ppo_update)
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.ops.shuffle import draw_words
+    from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
+    from gymothelloenv_tpu_torch.train.self_play import (Draws,
+                                                         collect_rollout,
+                                                         selfplay_init)
+    say(f"[train_reference] start: ppo_update card vs CPU, wide2, "
+        f"N={REF_ENVS}, T={REF_STEPS}: one step, then 4 epochs x 4 "
+        "minibatches, then the latter with each planted fault on the card")
+    env_cfg = EnvConfig(num_disk_as_reward=True)
+    net = make_network(env_cfg, HIDDEN, WIDTH_MULT, SEED + 1, dev).train()
+    draws = Draws(torch.Generator(dev).manual_seed(SEED + 1))
+    sp = selfplay_init(net, env_cfg, REF_ENVS, draws)
+    _, rollout, boot = collect_rollout(net, sp, env_cfg, REF_STEPS, draws)
+    inputs = {dev: (rollout, boot),
+              "cpu": (Transition(**{k: v.cpu() for k, v in
+                                    vars(rollout).items()}), boot.cpu())}
+    start = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+    def update(device, cfg, word_seed=SEED + 1):
+        """(param deltas on the CPU, metrics) of one ppo_update."""
+        words = draw_words(torch.Generator().manual_seed(word_seed),
+                           cfg.ppo_epochs)
+        n = make_network(env_cfg, HIDDEN, WIDTH_MULT, SEED + 1,
+                         device).train()
+        n.load_state_dict(start)
+        m = ppo_update(n, make_optimizer(cfg, n.parameters()),
+                       *inputs[device], words, cfg)
+        return ({k: v.cpu() - start[k] for k, v in n.state_dict().items()},
+                {k: float(v) for k, v in m.items()})
+
+    def leaf_rel(d_card, d_cpu):
+        """Per leaf: the largest delta difference over the leaf's own
+        largest CPU delta."""
+        out = {}
+        for k in start:
+            big = float(d_cpu[k].abs().max())
+            require(big > 0, f"the reference update did not move {k}")
+            out[k] = float((d_card[k] - d_cpu[k]).abs().max()) / big
+        return out
+
+    def check_metrics(m_card, m_cpu):
+        for k in m_cpu:
+            require(abs(m_card[k] - m_cpu[k])
+                    <= REF_METRIC_RTOL * abs(m_cpu[k]) + REF_METRIC_ATOL,
+                    f"card vs CPU {k}: {m_card[k]:.8g} vs {m_cpu[k]:.8g}")
+        return max(abs(m_card[k] - m_cpu[k]) for k in m_cpu)
+
+    one = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY, num_updates=1,
+                    ppo_epochs=1, num_mini_batch=1)
+    (d_card, m_card), (d_cpu, m_cpu) = update(dev, one), update("cpu", one)
+    merr1 = check_metrics(m_card, m_cpu)
+    err1 = max(float((d_card[k] - d_cpu[k]).abs().max()) for k in start)
+    big1 = max(float(d.abs().max()) for d in d_cpu.values())
+    require(big1 > 1e-4, "the reference update did not move the params")
+    require(err1 <= REF_ONE_STEP_ATOL,
+            f"one step: card vs CPU param deltas differ by {err1:.3e} > "
+            f"{REF_ONE_STEP_ATOL}")
+
+    cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                    num_updates=TRAIN_UPDATES)
+    (d_card, m_card), (d_cpu, m_cpu) = update(dev, cfg), update("cpu", cfg)
+    merr = check_metrics(m_card, m_cpu)
+    rel = leaf_rel(d_card, d_cpu)
+    worst = max(rel, key=rel.get)
+    planted = {}
+    for name, change, word_seed in PLANTS:
+        d_bad, _ = update(dev, dataclasses.replace(cfg, **change), word_seed)
+        planted[name] = max(leaf_rel(d_bad, d_cpu).values())
+    say(f"[train_reference] 4 x 4 minibatches, per-leaf |card - CPU| over "
+        f"the leaf's largest delta: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    say("[train_reference] planted faults on the card, the same reading: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in planted.items()))
+    require(rel[worst] <= REF_PARAM_RTOL,
+            f"card vs CPU deltas of {worst} differ by {rel[worst]:.3e} of "
+            f"its largest delta > {REF_PARAM_RTOL}")
+    for name, reading in planted.items():
+        require(reading > REF_PARAM_RTOL,
+                f"the planted fault '{name}' reads {reading:.3e}, inside "
+                f"the tolerance {REF_PARAM_RTOL}: the check cannot see it")
+    say(f"[train_reference] ok: one step: deltas (max {big1:.3e}) agree to "
+        f"{err1:.3e} (atol {REF_ONE_STEP_ATOL}), metrics to {merr1:.3e}; "
+        f"4 x 4 minibatches: deltas agree to {rel[worst]:.3e} of the "
+        f"largest delta of each leaf (worst {worst}; rtol "
+        f"{REF_PARAM_RTOL}), every planted fault above it (least "
+        f"{min(planted.values()):.3e}), metrics to {merr:.3e} (rtol "
+        f"{REF_METRIC_RTOL} + atol {REF_METRIC_ATOL}); fp32, TF32 off")
 
 
 def _index_policies(torch, tb):

@@ -1,0 +1,223 @@
+"""PPO with GAE — the port of ``agents/ppo.py`` (the vendored update rule,
+a2c_ppo_acktr/algo/ppo.py:34-110 + storage.py:73-112), feed-forward path.
+
+GAE is a reverse loop over T; the K-epoch minibatch loop indexes the flat
+rollout with the epoch's hash permutation (``ops/shuffle.py``) and takes
+one optimizer step per minibatch.  The TPU's gather workarounds
+(``ops/gather.pack_rows``, one-hot selects) are not ported: the flat
+tensors are indexed directly.
+
+The optimizer reproduces ``optax.chain(clip_by_global_norm(max_norm),
+adam(linear_schedule(lr -> 0), eps))``: the clip is written out
+(``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, optax does
+not), Adam keeps eps outside the square root as optax does, and the
+learning rate is ``lr * (1 - step / total)`` with step 0 at the full rate.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
+from gymothelloenv_tpu_torch.ops.shuffle import (is_power_of_two,
+                                                 minibatch_indices,
+                                                 sort_perm)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    """Hyperparameters; defaults are the flagship trainer's hard-coded
+    overrides (ppo_run_self_play.py:59-70) over get_args() defaults
+    (arguments.py:6-161)."""
+    lr: float = 1e-5
+    adam_eps: float = 1e-5
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_param: float = 0.1
+    ppo_epochs: int = 4
+    num_mini_batch: int = 4
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.0
+    max_grad_norm: float = 0.5
+    use_clipped_value_loss: bool = True
+    use_linear_lr_decay: bool = True
+    num_updates: int = 10000
+    # "hash": keyed bijection per minibatch when T*N is a power of two,
+    # else (and for "sort") a uniform permutation per epoch.
+    shuffle: str = "hash"
+    # Not ported yet (ROADMAP.md): the search-distillation loss.
+    distill: bool = False
+
+    def __post_init__(self):
+        if self.distill:
+            raise NotImplementedError(
+                "PPOConfig.distill is not ported yet (ROADMAP.md queue 1)")
+        if self.shuffle not in ("hash", "sort"):
+            raise ValueError(f"shuffle must be 'hash' or 'sort', got "
+                             f"{self.shuffle!r}")
+
+
+@dataclasses.dataclass
+class Transition:
+    """Rollout slots, shapes (T, N, ...) from the collector (or flat
+    minibatch rows)."""
+    obs: torch.Tensor     # int8 (..., 4, 8, 8) {0,1} planes
+    action: torch.Tensor  # int64
+    logp: torch.Tensor    # float32 behaviour log-prob
+    value: torch.Tensor   # float32 behaviour value estimate
+    reward: torch.Tensor  # float32
+    done: torch.Tensor    # bool: the episode ended with this transition
+    legal: torch.Tensor   # bool (..., 64) legal mask at sample time
+
+
+class Optimizer:
+    """``make_optimizer``'s result: global-norm clip, then Adam with a
+    linear learning-rate decay, over ``params``.  ``step()`` uses and
+    leaves the parameters' ``.grad``; nothing synchronises with the
+    host."""
+
+    def __init__(self, params, cfg: PPOConfig):
+        self.params = [p for p in params if p.requires_grad]
+        self.max_norm = cfg.max_grad_norm
+        self.adam = torch.optim.Adam(self.params, lr=cfg.lr,
+                                     betas=(0.9, 0.999), eps=cfg.adam_eps)
+        self.schedule = None
+        if cfg.use_linear_lr_decay:
+            total = cfg.num_updates * cfg.ppo_epochs * cfg.num_mini_batch
+            if total <= 0:
+                raise ValueError("linear lr decay needs num_updates, "
+                                 "ppo_epochs and num_mini_batch > 0")
+            self.schedule = torch.optim.lr_scheduler.LambdaLR(
+                self.adam, lambda step: 1.0 - min(step, total) / total)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def clip_grads(self) -> None:
+        """optax ``clip_by_global_norm``: ``g / norm * max_norm`` when
+        ``norm >= max_norm``, else ``g``."""
+        grads = [p.grad for p in self.params]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        factor = torch.where(norm < self.max_norm, torch.ones_like(norm),
+                             self.max_norm / norm)
+        for g in grads:
+            g.mul_(factor)
+
+    def step(self) -> None:
+        self.clip_grads()
+        self.adam.step()
+        if self.schedule is not None:
+            self.schedule.step()
+
+
+def make_optimizer(cfg: PPOConfig, params) -> Optimizer:
+    return Optimizer(params, cfg)
+
+
+@torch.no_grad()
+def compute_gae(rollout: Transition, bootstrap_value: torch.Tensor,
+                cfg: PPOConfig):
+    """Returns ``(advantages, returns)``, both (T, N); storage.py:99-112
+    without proper time limits.  ``mask_{t+1} = 1 - done_t``."""
+    next_values = torch.cat([rollout.value[1:], bootstrap_value[None]], 0)
+    next_mask = 1.0 - rollout.done.to(torch.float32)
+    deltas = (rollout.reward + cfg.gamma * next_values * next_mask
+              - rollout.value)
+    adv = torch.empty_like(deltas)
+    gae = torch.zeros_like(bootstrap_value)
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        # delta + (gamma * lambda * mask) * gae in ONE rounding: XLA
+        # contracts the JAX recursion into a fused multiply-add, and
+        # addcmul keeps the port bit-equal to it.
+        gae = torch.addcmul(deltas[t], cfg.gamma * cfg.gae_lambda
+                            * next_mask[t], gae)
+        adv[t] = gae
+    return adv, adv + rollout.value
+
+
+def ppo_loss(net: torch.nn.Module, batch: Transition,
+             advantages: torch.Tensor, returns: torch.Tensor,
+             cfg: PPOConfig):
+    """Clipped-surrogate PPO loss on a flat minibatch (algo/ppo.py:50-104);
+    returns ``(total, {value_loss, action_loss, entropy})``."""
+    logits, values = net(batch.obs.to(torch.float32))
+    return ppo_loss_terms(logits, values, batch, advantages, returns, cfg)
+
+
+def ppo_loss_terms(logits: torch.Tensor, values: torch.Tensor,
+                   batch: Transition, advantages: torch.Tensor,
+                   returns: torch.Tensor, cfg: PPOConfig):
+    """The loss given the network's outputs on the minibatch."""
+    dist = MaskedCategorical(logits=logits, mask=batch.legal)
+    logp = dist.log_prob(batch.action)
+    ratio = torch.exp(logp - batch.logp)
+    surr1 = ratio * advantages
+    surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param,
+                        1.0 + cfg.clip_param) * advantages
+    action_loss = -torch.minimum(surr1, surr2).mean()
+
+    if cfg.use_clipped_value_loss:
+        value_clipped = batch.value + torch.clamp(
+            values - batch.value, -cfg.clip_param, cfg.clip_param)
+        value_loss = 0.5 * torch.maximum(
+            (values - returns) ** 2, (value_clipped - returns) ** 2).mean()
+    else:
+        value_loss = 0.5 * ((returns - values) ** 2).mean()
+
+    # Reference entropy bonus: the UNMASKED softmax (model.py:178-179).
+    entropy = dist.entropy_full().mean()
+    total = (value_loss * cfg.value_loss_coef + action_loss
+             - entropy * cfg.entropy_coef)
+    return total, {"value_loss": value_loss, "action_loss": action_loss,
+                   "entropy": entropy}
+
+
+def ppo_update(net: torch.nn.Module, optimizer: Optimizer,
+               rollout: Transition, bootstrap_value: torch.Tensor,
+               epoch_words: torch.Tensor, cfg: PPOConfig):
+    """One full PPO update in place on ``net``: GAE, advantage
+    normalisation (population std, as JAX's ``std``), then ``ppo_epochs``
+    epochs of ``num_mini_batch`` shuffled minibatches.
+
+    ``epoch_words`` (ppo_epochs, 4): each epoch's shuffle key words (JAX:
+    ``jax.random.bits(k, (4,))`` for each ``k`` in
+    ``jax.random.split(key, ppo_epochs)``).  Returns the metrics averaged
+    over every minibatch, as 0-d tensors on the rollout's device."""
+    if tuple(epoch_words.shape) != (cfg.ppo_epochs, 4):
+        raise ValueError(f"epoch_words must be ({cfg.ppo_epochs}, 4), got "
+                         f"{tuple(epoch_words.shape)}")
+    adv, returns = compute_gae(rollout, bootstrap_value, cfg)
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+
+    T, N = rollout.reward.shape
+    batch_size = T * N
+    mb_size = batch_size // cfg.num_mini_batch
+    device = rollout.reward.device
+    flat = {name: getattr(rollout, name).reshape(
+        (batch_size,) + getattr(rollout, name).shape[2:])
+        for name in ("obs", "action", "logp", "value", "legal")}
+    flat_adv, flat_ret = adv.reshape(-1), returns.reshape(-1)
+    use_hash = cfg.shuffle == "hash" and is_power_of_two(batch_size)
+
+    metrics = []
+    for words in epoch_words.tolist():
+        perm = None if use_hash else sort_perm(words, batch_size, device)
+        for mb in range(cfg.num_mini_batch):
+            if use_hash:
+                idx = minibatch_indices(words, batch_size, mb, mb_size,
+                                        device)
+            else:
+                idx = perm[mb * mb_size:(mb + 1) * mb_size]
+            batch = Transition(reward=None, done=None,
+                               **{k: v[idx] for k, v in flat.items()})
+            optimizer.zero_grad()
+            loss, terms = ppo_loss(net, batch, flat_adv[idx],
+                                   flat_ret[idx], cfg)
+            loss.backward()
+            optimizer.step()
+            metrics.append(torch.stack([t.detach() for t in terms.values()]))
+    mean = torch.stack(metrics).mean(0)
+    return dict(zip(("value_loss", "action_loss", "entropy"), mean))

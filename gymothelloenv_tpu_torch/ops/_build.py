@@ -39,6 +39,11 @@ _SIGNATURES = {
     # n, num_steps, seed, device, stream
     "otb_rollout": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                     ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P),
+    # the same, then variant, unroll, threads per block before device
+    "otb_rollout_variant": (_P, _P, _P, _P, _P, _P, _P, _P,
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, _P),
 }
 
 

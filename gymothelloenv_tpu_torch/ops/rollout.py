@@ -1,10 +1,16 @@
-"""Kernel K1: the fused random-play rollout, and its plain version.
+"""Kernel K1: the fused random-play rollout; kernel K3, its profiling
+variants; and their plain version.
 
-Replaces ``gymothelloenv_tpu/ops/pallas_rollout.py::rollout_chunk``.
+K1 replaces ``gymothelloenv_tpu/ops/pallas_rollout.py::rollout_chunk``.
 Every game plays ``num_steps`` uniformly random legal plies in ONE launch
 of ``csrc/rollout.cu`` and finished games reset to the opening.  The state
 is the mover-perspective triple ``(cur, opp, legal)`` of int64 words
 (uint64 on the card), one entry per game.
+
+K3 replaces ``scripts/bench_rollout_variants.py::make_chunk``: the same
+kernel with one component stubbed out (``VARIANTS``; only ``full`` plays
+real games), an unroll factor and a block size, for cost attribution
+(``scripts/bench_rollout_variants.py`` of this package).
 
 Random bits: the kernel runs a Philox4x32-10 keyed by ``(seed, game)``
 with counter ``(ply // 4, game >> 32, 0, 0)`` and takes word ``ply % 4``.
@@ -77,16 +83,33 @@ def sample_legal(r: torch.Tensor, legal: torch.Tensor) -> torch.Tensor:
     return torch.ones_like(pos) << torch.where(in_w1, pos + 32, pos)
 
 
+# K3's variants (_ply_variant): the one component each stubs out.
+VARIANTS = ("full",       # nothing: K1's ply
+            "nosample",   # the lowest set legal bit, not the uniform pick
+            "noflips",    # the flips are the placed disk only
+            "nopass")     # no mover-again flood: done = opponent can't move
+
+
 def ply(cur: torch.Tensor, opp: torch.Tensor, legal: torch.Tensor,
-        r: torch.Tensor):
-    """One random-move ply for every game (``_ply``); returns the next
-    ``(cur, opp, legal)`` and the bool mask of games that just ended (they
-    are already reset to the opening)."""
-    a = sample_legal(r, legal)
-    f = resolve_flips(a, cur, opp)
+        r: torch.Tensor, variant: str = "full"):
+    """One random-move ply for every game (``_ply``, or ``_ply_variant``
+    for a ``variant`` of ``VARIANTS``); returns the next ``(cur, opp,
+    legal)`` and the bool mask of games that just ended (they are already
+    reset to the opening)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    if variant == "nosample":
+        a = legal & -legal       # two's complement: the lowest set bit
+    else:
+        a = sample_legal(r, legal)
+    f = a if variant == "noflips" else resolve_flips(a, cur, opp)
     nc, no = cur | a | f, opp & ~f
     lo = legal_mask(no, nc)      # opponent to move
-    ls = legal_mask(nc, no)      # mover again (opponent passes)
+    if variant == "nopass":
+        ls = torch.zeros_like(lo)
+    else:
+        ls = legal_mask(nc, no)  # mover again (opponent passes)
     opp_has = lo != 0
     done = ~opp_has & (ls == 0)
 
@@ -138,9 +161,11 @@ def philox_words(seed: int, num_steps: int, n: int,
 
 
 def rollout_chunk_plain(state: RolloutState, seed: int, num_steps: int,
-                        words: torch.Tensor | None = None):
-    """Plain version of K1: ``num_steps`` plies of ``ply``.  Returns
-    ``(new_state, episodes)`` with ``episodes`` an int64 0-d tensor."""
+                        words: torch.Tensor | None = None,
+                        variant: str = "full"):
+    """Plain version of K1 (and of K3 for another ``variant``):
+    ``num_steps`` plies of ``ply``.  Returns ``(new_state, episodes)``
+    with ``episodes`` an int64 0-d tensor."""
     n = state.cur.shape[0]
     if words is None:
         r_all = philox_words(seed, num_steps, n, state.cur.device)
@@ -149,7 +174,7 @@ def rollout_chunk_plain(state: RolloutState, seed: int, num_steps: int,
     c, o, l = state.cur, state.opp, state.legal
     eps = torch.zeros((), dtype=torch.int64, device=c.device)
     for i in range(num_steps):
-        c, o, l, done = ply(c, o, l, r_all[i])
+        c, o, l, done = ply(c, o, l, r_all[i], variant)
         eps = eps + done.sum()
     return RolloutState(cur=c, opp=o, legal=l), eps
 
@@ -178,6 +203,45 @@ def _check(state: RolloutState, num_steps: int,
             raise ValueError("words and state on different devices")
 
 
+def _launch(entry: str, state: RolloutState, seed: int, num_steps: int,
+            words: torch.Tensor | None, episodes: torch.Tensor,
+            *knobs: int) -> RolloutState:
+    """One launch of the C entry ``entry`` on the state's card; ``knobs``
+    go between the seed and the device (K3's variant, unroll, threads)."""
+    device = state.cur.device
+    if device.type != "cuda":
+        raise ValueError(f"the rollout kernels run on cpu or cuda, not "
+                         f"{device}")
+    tensors = [state.cur, state.opp, state.legal, episodes]
+    if words is not None:
+        tensors.append(words)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("the rollout kernels need contiguous tensors")
+    if episodes.dtype != torch.int64 or episodes.device != device:
+        raise ValueError("episodes must be an int64 tensor on the card")
+    out = RolloutState(cur=torch.empty_like(state.cur),
+                       opp=torch.empty_like(state.opp),
+                       legal=torch.empty_like(state.legal))
+    n = state.cur.shape[0]
+    if n == 0:
+        return out
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check(getattr(lib, entry)(
+        state.cur.data_ptr(), state.opp.data_ptr(), state.legal.data_ptr(),
+        out.cur.data_ptr(), out.opp.data_ptr(), out.legal.data_ptr(),
+        episodes.data_ptr(), None if words is None else words.data_ptr(),
+        n, num_steps, seed & _M32, *knobs, device.index, stream), entry)
+    return out
+
+
+def _new_episodes(state: RolloutState,
+                  episodes: torch.Tensor | None) -> torch.Tensor:
+    if episodes is None:
+        return torch.zeros((), dtype=torch.int64, device=state.cur.device)
+    return episodes
+
+
 def rollout_chunk(state: RolloutState, seed: int, num_steps: int,
                   words: torch.Tensor | None = None,
                   episodes: torch.Tensor | None = None):
@@ -186,40 +250,62 @@ def rollout_chunk(state: RolloutState, seed: int, num_steps: int,
     ``(new_state, episodes)``; ``episodes`` is an int64 0-d tensor, and a
     given ``episodes`` tensor is added to in place."""
     _check(state, num_steps, words)
-    device = state.cur.device
-    if episodes is None:
-        episodes = torch.zeros((), dtype=torch.int64, device=device)
-    if device.type == "cpu":
+    episodes = _new_episodes(state, episodes)
+    if state.cur.device.type == "cpu":
         new, eps = rollout_chunk_plain(state, seed, num_steps, words)
         episodes += eps
         return new, episodes
-    if device.type != "cuda":
-        raise ValueError(f"rollout_chunk runs on cpu or cuda, not {device}")
-    tensors = [state.cur, state.opp, state.legal, episodes]
-    if words is not None:
-        tensors.append(words)
-    if not all(x.is_contiguous() for x in tensors):
-        raise ValueError("rollout_chunk needs contiguous tensors on the card")
-    if episodes.dtype != torch.int64 or episodes.device != device:
-        raise ValueError("episodes must be an int64 tensor on the card")
-    out = RolloutState(cur=torch.empty_like(state.cur),
-                       opp=torch.empty_like(state.opp),
-                       legal=torch.empty_like(state.legal))
-    n = state.cur.shape[0]
-    if n == 0:
-        return out, episodes
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _build.check(lib.otb_rollout(
-        state.cur.data_ptr(), state.opp.data_ptr(), state.legal.data_ptr(),
-        out.cur.data_ptr(), out.opp.data_ptr(), out.legal.data_ptr(),
-        episodes.data_ptr(), None if words is None else words.data_ptr(),
-        n, num_steps, seed & _M32, device.index, stream), "rollout")
-    rollout_chunk.launches += 1
+    out = _launch("otb_rollout", state, seed, num_steps, words, episodes)
+    if state.cur.numel():
+        rollout_chunk.launches += 1
     return out, episodes
 
 
 rollout_chunk.launches = 0
+
+
+# K3's knobs: threads per block stands in for the TPU script's grid of
+# 1, 2 or 4 programs.  Unroll 2 and 4 are built for ``full`` alone, the
+# profiler's only unrolled configurations.
+THREADS = (32, 64, 128)
+UNROLLS = (1, 2, 4)
+
+
+def rollout_variant_chunk(state: RolloutState, seed: int, num_steps: int,
+                          variant: str, unroll: int = 1, threads: int = 32,
+                          words: torch.Tensor | None = None,
+                          episodes: torch.Tensor | None = None):
+    """K3: ``rollout_chunk`` with ``variant`` (one of ``VARIANTS``), the
+    ply loop unrolled ``unroll`` times (2 and 4 for ``full`` only) and
+    ``threads`` per block, in ONE launch.  Philox is keyed by (seed,
+    game), so ``threads`` and ``unroll`` never change the result.  CPU tensors take the plain loop
+    (the knobs are checked, then have nothing to change).  Returns
+    ``(new_state, episodes)`` as ``rollout_chunk`` does."""
+    _check(state, num_steps, words)
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    if threads not in THREADS:
+        raise ValueError(f"threads must be one of {THREADS}, got {threads}")
+    if unroll not in UNROLLS:
+        raise ValueError(f"unroll must be one of {UNROLLS}, got {unroll}")
+    if unroll != 1 and variant != "full":
+        raise ValueError(f"unroll {unroll} is built for variant 'full' "
+                         f"only, got {variant!r}")
+    episodes = _new_episodes(state, episodes)
+    if state.cur.device.type == "cpu":
+        new, eps = rollout_chunk_plain(state, seed, num_steps, words,
+                                       variant)
+        episodes += eps
+        return new, episodes
+    out = _launch("otb_rollout_variant", state, seed, num_steps, words,
+                  episodes, VARIANTS.index(variant), unroll, threads)
+    if state.cur.numel():
+        rollout_variant_chunk.launches += 1
+    return out, episodes
+
+
+rollout_variant_chunk.launches = 0
 
 
 def rollout_chunks(state: RolloutState, seed0: int, n_chunks: int,

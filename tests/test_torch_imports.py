@@ -45,3 +45,13 @@ def test_forbidden_match_is_exact():
         names |= set(_top_level_imports(path))
     assert "gymothelloenv_tpu_torch" in names
     assert "gymothelloenv_tpu" not in names
+
+
+def test_training_slice_modules_are_checked():
+    """The K3 path and the PPO training path are among the files above."""
+    checked = {os.path.relpath(p, PORT) for p in _port_files()}
+    for rel in ("agents/ppo.py", "ops/shuffle.py", "ops/rollout.py",
+                "train/self_play.py", "train/ppo_trainer.py",
+                "utils/logging.py", "cli/ppo_self_play.py",
+                "scripts/bench_rollout_variants.py"):
+        assert rel in checked, rel

@@ -7,6 +7,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from gymothelloenv_tpu.core import bitboard as bb
@@ -74,3 +75,15 @@ def random_states(n: int, seed: int, max_plies: int = 60) -> bb.BitState:
         s = jax.tree.map(
             lambda a, b: jnp.where(jnp.asarray(live), a, b), new, s)
     return s
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for the module's tests.  The suite runs in
+    several worker processes, and torch's default of one thread per core
+    oversubscribes the CPU: tests made of many small ops then run many
+    times slower.  Import it into a test module to apply it there."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
