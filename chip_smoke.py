@@ -7,9 +7,10 @@ Builds the port's kernels with nvcc, holds each kernel against its plain
 PyTorch version, then drives the main paths, each with the launch counts
 set to 0 just before it and read just after:
 
-  * the fused random-play rollout (kernel K1) at the bench protocol, and
-    the wide2 policy net against the greedy opponent through the bitboard
-    engine (kernel K2 on every ply);
+  * the fused random-play rollout (kernel K1) at the bench protocol, with
+    each game on the lane group that ops/rollout.py rollout_lanes picks,
+    and the wide2 policy net against the greedy opponent through the
+    bitboard engine (kernel K2 on every ply);
   * the rollout-variant profiler (kernel K3: K1 with one component stubbed
     out, or at another unroll / block size), every configuration of
     gymothelloenv_tpu_torch/scripts/bench_rollout_variants.py at the bench
@@ -24,15 +25,23 @@ It reads no file outside gymothelloenv_tpu_torch/ (the nets are seeded
 inits) and exits non-zero on any failure, without a CUDA card, or when run
 outside a checkout of the repository.
 
+K1 is held against its plain version at every lane count (1, 2, 4, 8) on
+injected words (also at a ragged N and at N = 1) and on Philox, and timed
+at every lane count for N 1024 to 65,536 ([rollout_lanes], the grounds of
+rollout_lanes).
+
 Output: one flushed line before and after every phase; then a JSON line
 with every kernel's launches, error against its plain version, times and
 bound; the total seconds; the card's name and power limit as nvidia-smi
 reports them; and last {"ok": true, "device": {...}}.
 
-Float32 throughout; TF32 is switched off for matmuls and cuDNN convolutions
-so the net on the card agrees with the CPU to float32 tolerance.
+Float32 throughout: the script sets no TF32 flag of its own.  The port's
+entry points switch TF32 off (utils/device.py use_float32); before [train]
+the script turns both flags on and checks that constructing the trainer
+turns them off and that its net then agrees with a CPU copy.
 """
 
+import copy
 import json
 import math
 import os
@@ -73,6 +82,9 @@ ROLLOUT_N = 4096              # bench protocol (BASELINE.json configs[1])
 ROLLOUT_STEPS = 512
 ROLLOUT_CHUNKS = 64
 PARITY_STEPS = 256
+RAGGED = ((4099, 64), (1, 64))  # (N, plies): a ragged N and a single game
+LANES_NS = (1024, 2048, 4096, 8192, 16384, 65536)  # [rollout_lanes]
+LANES_REPS = 8                # chained chunks per [rollout_lanes] time
 EVAL_GAMES = 1024             # half as black, half as white
 EVAL_RAND_STEPS = 10
 WIDTH_MULT, HIDDEN = 2, 1024  # wide2 (data/selfplay/ppo_wide2_4k.msgpack)
@@ -82,6 +94,8 @@ TRAIN_ENVS, TRAIN_STEPS, TRAIN_UPDATES = 1024, 64, 3
 TRAIN_LR, TRAIN_ENTROPY = 2.5e-4, 0.01
 TRAIN_TEST_GAMES = 200
 REF_ENVS, REF_STEPS = 64, 16  # card-vs-CPU update, cut from N 1024, T 64
+FP32_BATCH, FP32_PLIES = 256, 37  # the trainer net's card-vs-CPU forward
+FP32_ATOL = 1e-4
 # Card vs CPU, fp32 sums in other orders on the two devices.  A one-step
 # update (1 epoch, 1 minibatch) moves each parameter by lr * g / (|g| +
 # eps), so a gradient error dg moves it by at most lr * dg / eps: 2.5e-8
@@ -186,8 +200,6 @@ def main():
     from gymothelloenv_tpu_torch.scripts import bench_rollout_variants as brv
     from gymothelloenv_tpu_torch.train import tournament as tour
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE_TYPE, 0)
 
     # 1. device -----------------------------------------------------------
@@ -204,11 +216,16 @@ def main():
     say("[build] start: nvcc over gymothelloenv_tpu_torch/csrc/*.cu")
     info = _build.build()
     _build.load_library()
+    kernels = 0
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             say(f"[build] ptxas {line.strip()}")
+        kernels += "Compiling entry function" in line
+        if "spill" in line:
+            require(" 0 bytes spill stores, 0 bytes spill loads" in line,
+                    f"a kernel spills registers: {line.strip()}")
     say(f"[build] ok: {'built' if info.built else 'reused'} {info.path.name} "
-        f"in {info.seconds:.2f} s")
+        f"({kernels} kernels, no spills) in {info.seconds:.2f} s")
 
     # 3. legal_mask (K2) --------------------------------------------------
     say(f"[legal_mask] start: K2 vs plain on {LEGAL_BOARDS} reachable "
@@ -249,77 +266,50 @@ def main():
         f"wrapper call, plain {k2['plain_ms']:.3f} ms")
 
     # 4. rollout_parity (K1, injected words) -------------------------------
-    say(f"[rollout_parity] start: K1 words mode vs plain ply loop, "
-        f"{ROLLOUT_N} games x {PARITY_STEPS} plies")
+    say(f"[rollout_parity] start: K1 words mode vs plain ply loop at lanes "
+        f"{ro.LANES}, {ROLLOUT_N} games x {PARITY_STEPS} plies, and "
+        + ", ".join(f"{n} x {k}" for n, k in RAGGED))
     words = torch.randint(-2 ** 31, 2 ** 31, (PARITY_STEPS, ROLLOUT_N),
                           dtype=torch.int32, generator=gen, device=dev)
+    words_eps = 0
+    for n, steps in ((ROLLOUT_N, PARITY_STEPS),) + RAGGED:
+        w = words if n == ROLLOUT_N else torch.randint(
+            -2 ** 31, 2 ** 31, (steps, n), dtype=torch.int32, generator=gen,
+            device=dev)
+        s0 = ro.rollout_init(n, dev)
+        want, want_eps = ro.rollout_chunk_plain(s0, 0, steps, words=w)
+        require(int(want_eps) > 0, f"no game ended in {n} x {steps} plies")
+        for lanes in ro.LANES:
+            got, got_eps = ro.rollout_chunk(s0, 0, steps, words=w,
+                                            lanes=lanes)
+            for field in ("cur", "opp", "legal"):
+                require(torch.equal(getattr(got, field), getattr(want, field)),
+                        f"K1 (words, N {n}, lanes {lanes}) disagrees with "
+                        f"plain on {field}")
+            require(int(got_eps) == int(want_eps),
+                    f"K1 (words, N {n}, lanes {lanes}) episodes "
+                    f"{int(got_eps)} != plain {int(want_eps)}")
+        if n == ROLLOUT_N:
+            words_eps = int(want_eps)
     s0 = ro.rollout_init(ROLLOUT_N, dev)
-    got, got_eps = ro.rollout_chunk(s0, 0, PARITY_STEPS, words=words)
-    want, want_eps = ro.rollout_chunk_plain(s0, 0, PARITY_STEPS, words=words)
-    for field in ("cur", "opp", "legal"):
-        require(torch.equal(getattr(got, field), getattr(want, field)),
-                f"K1 (words) disagrees with plain on {field}")
-    require(int(got_eps) == int(want_eps) > 0,
-            f"K1 episodes {int(got_eps)} != plain {int(want_eps)}")
     words_ms = device_ms(torch, lambda: ro.rollout_chunk(
         s0, 0, PARITY_STEPS, words=words), 5)
-    say(f"[rollout_parity] ok: state and {int(got_eps)} episodes exact; "
-        f"kernel {words_ms:.3f} ms for {PARITY_STEPS} plies")
-
-    # Main path: every launch count starts at 0 here.
-    legal_mask.launches = 0
-    ro.rollout_chunk.launches = 0
+    say(f"[rollout_parity] ok: state and episodes exact at every lanes "
+        f"({words_eps} episodes at N {ROLLOUT_N}); kernel {words_ms:.3f} ms "
+        f"for {PARITY_STEPS} plies at lanes {ro.rollout_lanes(ROLLOUT_N)}")
 
     # 5. rollout (K1, Philox, bench protocol) ------------------------------
-    say(f"[rollout] start: N={ROLLOUT_N}, {ROLLOUT_STEPS} plies/chunk, "
-        f"{ROLLOUT_CHUNKS} chunks after one warm-up chunk")
-    s0 = ro.rollout_init(ROLLOUT_N, dev)
-    warm, warm_eps = ro.rollout_chunk(s0, SEED, ROLLOUT_STEPS)
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    plain, plain_eps = ro.rollout_chunk_plain(s0, SEED, ROLLOUT_STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    k1_plain_ms = start.elapsed_time(end)
-    for field in ("cur", "opp", "legal"):
-        require(torch.equal(getattr(warm, field), getattr(plain, field)),
-                f"K1 (Philox) disagrees with plain on {field}")
-    require(int(warm_eps) == int(plain_eps),
-            "K1 (Philox) episode count disagrees with plain")
-    k1_err = max(word_bits_err(tb, getattr(warm, f),
-                               getattr(plain, f))
-                 for f in ("cur", "opp", "legal"))
-    start.record()
-    final, total_eps = ro.rollout_chunks(warm, SEED + 1, ROLLOUT_CHUNKS,
-                                         ROLLOUT_STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    region_ms = start.elapsed_time(end)
-    chunk_ms = region_ms / ROLLOUT_CHUNKS
-    steps = ROLLOUT_N * ROLLOUT_STEPS * ROLLOUT_CHUNKS
-    env_steps_per_s = steps / (region_ms / 1e3)
-    plies_per_episode = steps / total_eps
-    require(55 <= plies_per_episode <= 67,
-            f"{plies_per_episode:.2f} plies per episode, expected 55-67")
-    require(int(((final.cur & final.opp) != 0).sum()) == 0,
-            "rollout disks overlap")
-    require(torch.equal(final.legal, legal_mask_plain(final.cur, final.opp)),
-            "stored legal mask differs from a recomputed one")
-    require(bool((final.legal != 0).all()), "a game has no legal move")
-    k1_ops = K1_OPS_PER_PLY * ROLLOUT_N * ROLLOUT_STEPS
-    k1 = dict(ms=chunk_ms, plain_ms=k1_plain_ms, max_abs_err=k1_err)
-    k1["bound_ms"], k1["bound_by"] = bound_ms(48 * ROLLOUT_N + 8, k1_ops)
-    say(f"[rollout] ok: warm-up chunk equal to plain (Philox); "
-        f"{chunk_ms:.4f} ms/chunk, env_steps_per_sec={env_steps_per_s:.1f}, "
-        f"{total_eps} episodes, plies_per_episode={plies_per_episode:.3f}; "
-        f"plain chunk {k1_plain_ms:.1f} ms")
+    k1, rollout_launches = _rollout_phase(torch, tb, ro, legal_mask_plain,
+                                          dev)
+    k1["lanes_ms"] = _rollout_lanes_phase(torch, ro, dev)
 
     # 6. eval (K2 inside bit_step) ----------------------------------------
     say(f"[eval] start: wide2 PolicyNet (width_mult={WIDTH_MULT}, "
         f"hidden={HIDDEN}, seeded init) vs greedy, {EVAL_GAMES} games, "
         f"init_rand_steps={EVAL_RAND_STEPS}")
     net = make_policy_net(WIDTH_MULT, HIDDEN, seed=SEED, device=dev)
+    # Main path: K2's count starts at 0 here.
+    legal_mask.launches = 0
     act = tour.net_tournament_policy(net)
     egen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
@@ -330,7 +320,7 @@ def main():
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = {"legal_mask": legal_mask.launches,
-                "rollout": ro.rollout_chunk.launches}
+                "rollout": rollout_launches}
     require(wins + draws + losses == EVAL_GAMES, "eval lost games")
     for kname, count in launches.items():
         require(count > 0, f"kernel {kname} was not launched on the main path")
@@ -387,9 +377,7 @@ def main():
              launches=launches["rollout"], library_ms=None,
              equal=True, tolerance="exact",
              shape=f"{ROLLOUT_N} games x {ROLLOUT_STEPS} plies",
-             words_ms=words_ms, words_plies=PARITY_STEPS,
-             env_steps_per_sec=env_steps_per_s,
-             plies_per_episode=plies_per_episode, **k1),
+             words_ms=words_ms, words_plies=PARITY_STEPS, **k1),
         dict(name="rollout_variants", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/rollout.cu",
              replaces="scripts/bench_rollout_variants.py:68",
@@ -405,14 +393,132 @@ def main():
     return 0
 
 
+def _rollout_phase(torch, tb, ro, legal_mask_plain, dev):
+    """K1 on Philox: the 512-ply chunk from the opening at every lanes
+    against the plain loop, then the bench protocol through rollout_chunks
+    at the lanes rollout_lanes picks (the main path, launches counted from
+    0), then the same protocol at lanes 1.  Returns the kernels-line fields
+    and the main path's launch count."""
+    lanes = ro.rollout_lanes(ROLLOUT_N)
+    say(f"[rollout] start: N={ROLLOUT_N}, {ROLLOUT_STEPS} plies/chunk, "
+        f"{ROLLOUT_CHUNKS} chunks after one warm-up chunk, lanes {lanes} "
+        f"(rollout_lanes), then the same at lanes 1")
+    s0 = ro.rollout_init(ROLLOUT_N, dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    plain, plain_eps = ro.rollout_chunk_plain(s0, SEED, ROLLOUT_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = 0
+    for each in ro.LANES:
+        got, got_eps = ro.rollout_chunk(s0, SEED, ROLLOUT_STEPS, lanes=each)
+        for field in ("cur", "opp", "legal"):
+            require(torch.equal(getattr(got, field), getattr(plain, field)),
+                    f"K1 (Philox, lanes {each}) disagrees with plain on "
+                    f"{field}")
+        require(int(got_eps) == int(plain_eps),
+                f"K1 (Philox, lanes {each}) episode count disagrees with "
+                "plain")
+        err = max(err, max(word_bits_err(tb, getattr(got, f),
+                                         getattr(plain, f))
+                           for f in ("cur", "opp", "legal")))
+
+    def protocol(lanes_):
+        """(warm-up chunk, state, episodes, ms per chunk) of the bench."""
+        warm, _ = ro.rollout_chunk(s0, SEED, ROLLOUT_STEPS, lanes=lanes_)
+        torch.cuda.synchronize()
+        start.record()
+        final, total = ro.rollout_chunks(warm, SEED + 1, ROLLOUT_CHUNKS,
+                                         ROLLOUT_STEPS, lanes=lanes_)
+        end.record()
+        torch.cuda.synchronize()
+        return warm, final, total, start.elapsed_time(end) / ROLLOUT_CHUNKS
+
+    # Main path: K1's count starts at 0 here.
+    ro.rollout_chunk.launches = 0
+    warm, final, total_eps, chunk_ms = protocol(lanes)
+    launches = ro.rollout_chunk.launches
+    require(launches == ROLLOUT_CHUNKS + 1,
+            f"K1 launched {launches} times on the main path, expected "
+            f"{ROLLOUT_CHUNKS + 1}")
+    for field in ("cur", "opp", "legal"):
+        require(torch.equal(getattr(warm, field), getattr(plain, field)),
+                f"K1's warm-up chunk disagrees with plain on {field}")
+    steps = ROLLOUT_N * ROLLOUT_STEPS * ROLLOUT_CHUNKS
+    env_steps_per_s = steps / (chunk_ms * ROLLOUT_CHUNKS / 1e3)
+    plies_per_episode = steps / total_eps
+    require(55 <= plies_per_episode <= 67,
+            f"{plies_per_episode:.2f} plies per episode, expected 55-67")
+    require(int(((final.cur & final.opp) != 0).sum()) == 0,
+            "rollout disks overlap")
+    require(torch.equal(final.legal, legal_mask_plain(final.cur, final.opp)),
+            "stored legal mask differs from a recomputed one")
+    require(bool((final.legal != 0).all()), "a game has no legal move")
+    _, final1, total1, chunk1_ms = protocol(1)
+    require(torch.equal(final1.cur, final.cur) and total1 == total_eps,
+            "the bench at lanes 1 played other games than at lanes "
+            f"{lanes}")
+    k1_ops = K1_OPS_PER_PLY * ROLLOUT_N * ROLLOUT_STEPS
+    k1 = dict(ms=chunk_ms, plain_ms=plain_ms, max_abs_err=err, lanes=lanes,
+              env_steps_per_sec=env_steps_per_s,
+              plies_per_episode=plies_per_episode, ms_lanes1=chunk1_ms,
+              env_steps_per_sec_lanes1=steps / (chunk1_ms * ROLLOUT_CHUNKS
+                                                / 1e3))
+    k1["bound_ms"], k1["bound_by"] = bound_ms(48 * ROLLOUT_N + 8, k1_ops)
+    say(f"[rollout] ok: the {ROLLOUT_STEPS}-ply Philox chunk equal to plain "
+        f"at lanes {ro.LANES}; lanes {lanes}: {chunk_ms:.4f} ms/chunk, "
+        f"env_steps_per_sec={env_steps_per_s:.1f}, {launches} launches, "
+        f"{total_eps} episodes, plies_per_episode={plies_per_episode:.3f}; "
+        f"lanes 1 (same games): {chunk1_ms:.4f} ms/chunk, env_steps_per_sec="
+        f"{k1['env_steps_per_sec_lanes1']:.1f}; plain chunk {plain_ms:.1f} ms")
+    return k1, launches
+
+
+def _rollout_lanes_phase(torch, ro, dev):
+    """K1's ms per chained ROLLOUT_STEPS-ply chunk at every lanes for each
+    N of LANES_NS: the grounds of rollout_lanes.  Returns {N: {lanes:
+    ms}}."""
+    say(f"[rollout_lanes] start: ms per {ROLLOUT_STEPS}-ply chunk at lanes "
+        f"{ro.LANES} for N {LANES_NS}, {LANES_REPS} chained chunks each")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    table = {}
+    for n in LANES_NS:
+        row = {}
+        for lanes in ro.LANES:
+            state, _ = ro.rollout_chunk(ro.rollout_init(n, dev), SEED,
+                                        ROLLOUT_STEPS, lanes=lanes)
+            torch.cuda.synchronize()
+            start.record()
+            for i in range(LANES_REPS):
+                state, _ = ro.rollout_chunk(state, SEED + 1 + i,
+                                            ROLLOUT_STEPS, lanes=lanes)
+            end.record()
+            torch.cuda.synchronize()
+            row[lanes] = start.elapsed_time(end) / LANES_REPS
+        best = min(row, key=row.get)
+        picked = ro.rollout_lanes(n)
+        say(f"[rollout_lanes] N {n}: " + ", ".join(
+            f"lanes {k} {v:.4f}" for k, v in row.items())
+            + f" ms; fastest lanes {best}, rollout_lanes picks {picked} "
+            f"({100 * (row[picked] / row[best] - 1):.1f}% above the fastest)")
+        table[n] = row
+    say("[rollout_lanes] ok")
+    return table
+
+
 def _variants_phase(torch, tb, ro, brv, dev, words):
-    """K3: each variant against its plain loop on injected words and on
-    the profiler's own Philox chunk, full at every knob against K1, then
-    every profiler configuration.  Returns the kernels-line fields."""
+    """K3: each built variant against its plain loop on injected words at
+    lanes 1 and BENCH_LANES and on the profiler's own Philox chunk, full
+    at every knob against K1, then every profiler configuration at the
+    lanes K1 runs at.  Returns the kernels-line fields."""
     steps = words.shape[0]
+    lanes = ro.rollout_lanes(ROLLOUT_N)
+    configs = brv.configs(lanes)
     say(f"[variants] start: K3 variants vs plain on {ROLLOUT_N} games x "
-        f"{steps} plies of injected words and on a {ROLLOUT_STEPS}-ply "
-        f"Philox chunk; full at every knob vs K1")
+        f"{steps} plies of injected words at lanes 1 and {ro.BENCH_LANES} "
+        f"and on a {ROLLOUT_STEPS}-ply Philox chunk at lanes {lanes}; full "
+        "at every knob vs K1")
     s0 = ro.rollout_init(ROLLOUT_N, dev)
     err = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -426,18 +532,23 @@ def _variants_phase(torch, tb, ro, brv, dev, words):
         return max(word_bits_err(tb, getattr(got, f), getattr(want, f))
                    for f in ("cur", "opp", "legal"))
 
+    checked = 0
     for variant in ro.VARIANTS:
         want, want_eps = ro.rollout_chunk_plain(s0, 0, steps, words,
                                                 variant)
-        for unroll in ro.UNROLLS if variant == "full" else (1,):
-            got, got_eps = ro.rollout_variant_chunk(s0, 0, steps, variant,
-                                                    unroll=unroll,
-                                                    words=words)
-            err = max(err, same(got, got_eps, want, want_eps,
-                                f"{variant} unroll {unroll} (words) vs "
-                                "plain"))
+        for unroll in ro.UNROLLS:
+            for each in (1, ro.BENCH_LANES):
+                if not ro.built(variant, unroll, each):
+                    continue
+                got, got_eps = ro.rollout_variant_chunk(
+                    s0, 0, steps, variant, unroll=unroll, lanes=each,
+                    words=words)
+                err = max(err, same(got, got_eps, want, want_eps,
+                                    f"{variant} unroll {unroll} lanes "
+                                    f"{each} (words) vs plain"))
+                checked += 1
     parity_ms = device_ms(torch, lambda: ro.rollout_variant_chunk(
-        s0, 0, steps, "full", words=words), 5)
+        s0, 0, steps, "full", lanes=lanes, words=words), 5)
     # The profiler's kernels (Philox, ROLLOUT_STEPS plies from the
     # opening), each against its variant's plain loop; full's against K1.
     k1, k1_eps = ro.rollout_chunk(s0, SEED, ROLLOUT_STEPS)
@@ -449,7 +560,7 @@ def _variants_phase(torch, tb, ro, brv, dev, words):
         end.record()
         torch.cuda.synchronize()
         plain_ms[variant] = start.elapsed_time(end)
-        for name, knobs in brv.CONFIGS:
+        for name, knobs in configs:
             if knobs["variant"] != variant:
                 continue
             got, got_eps = ro.rollout_variant_chunk(s0, SEED, ROLLOUT_STEPS,
@@ -458,12 +569,13 @@ def _variants_phase(torch, tb, ro, brv, dev, words):
                                 f"{name} (Philox) vs plain"))
             if variant == "full":
                 same(got, got_eps, k1, k1_eps, f"{name} vs K1")
-    say(f"[variants] parity ok: 4 variants (full at unroll 1/2/4) exact vs "
-        f"plain on {steps} plies of words (kernel {parity_ms:.4f} ms); all "
-        f"8 configurations exact vs plain on the {ROLLOUT_STEPS}-ply Philox "
-        f"chunk (plain " + ", ".join(f"{v} {ms:.1f} ms" for v, ms in
-                                     plain_ms.items())
-        + "); full at unroll 1/2/4 and 32/64/128 threads equals K1")
+    say(f"[variants] parity ok: {checked} kernels (4 variants, full at "
+        f"unroll 1/2/4, at lanes 1 and {ro.BENCH_LANES}) exact vs plain on "
+        f"{steps} plies of words (kernel {parity_ms:.4f} ms); all "
+        f"{len(configs)} configurations at lanes {lanes} exact vs plain on "
+        f"the {ROLLOUT_STEPS}-ply Philox chunk (plain "
+        + ", ".join(f"{v} {ms:.1f} ms" for v, ms in plain_ms.items())
+        + "); every full configuration equals K1")
     # K1 under the profiler's protocol (every chunk from the opening, not
     # chained as in [rollout]), to set K3's times beside K1's.
     total = torch.zeros((), dtype=torch.int64, device=dev)
@@ -479,29 +591,29 @@ def _variants_phase(torch, tb, ro, brv, dev, words):
     # Main path: the profiler's configurations.
     ro.rollout_variant_chunk.launches = 0
     results = brv.run(ROLLOUT_N, ROLLOUT_STEPS, VARIANT_REPS, dev,
-                      out=lambda line: say(f"[variants] {line}"))
+                      out=lambda line: say(f"[variants] {line}"), lanes=lanes)
     launches = ro.rollout_variant_chunk.launches
     require(launches > 0, "kernel rollout_variants was not launched on "
             "its main path")
-    configs = {}
-    for name, knobs in brv.CONFIGS:
+    rows = {}
+    for name, knobs in configs:
         r = results[name]
         ops = K3_OPS_PER_PLY[knobs["variant"]]
         b_ms, b_by = bound_ms(48 * ROLLOUT_N + 8,
                               ops * ROLLOUT_N * ROLLOUT_STEPS)
-        configs[name] = dict(ms=r["ms"], m_plies_per_s=r["plies_per_s"] / 1e6,
+        rows[name] = dict(ms=r["ms"], m_plies_per_s=r["plies_per_s"] / 1e6,
                              bound_ms=b_ms, bound_by=b_by, ops_per_ply=ops,
                              episodes=r["episodes"],
                              plain_ms=plain_ms[knobs["variant"]])
         say(f"[variants] {name:13s} bound {b_ms:.4f} ms ({b_by}, {ops} "
             f"int ops/ply); {100 * b_ms / r['ms']:.1f}% of bound")
-    full = configs["full"]
+    full = rows["full"]
     say(f"[variants] ok: {launches} launches on the profiler path")
     return dict(launches=launches, max_abs_err=err, ms=full["ms"],
                 plain_ms=plain_ms["full"], parity_ms=parity_ms,
                 parity_plies=steps, k1_restart_ms=k1_restart_ms,
                 bound_ms=full["bound_ms"], bound_by=full["bound_by"],
-                configs=configs)
+                lanes=lanes, configs=rows)
 
 
 def _train_phase(torch, legal_mask, dev):
@@ -539,11 +651,16 @@ def _train_phase(torch, legal_mask, dev):
             f"{metrics['k2_launches']}, collector host syncs "
             f"{metrics['collect_syncs']}")
 
+    # F1: the trainer, not this script, switches TF32 off.  Both flags on
+    # first (cuDNN's default; matmul's as a caller may leave it).
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
     # Main path: K2's count starts at 0 here.
     legal_mask.launches = 0
-    t0 = time.perf_counter()
     trainer = PPOSelfPlayTrainer(EnvConfig(num_disk_as_reward=True), ppo_cfg,
                                  run_cfg, log_fn=log_fn, device=dev)
+    _fp32_check(torch, trainer.net, dev)
+    t0 = time.perf_counter()
     trainer.train(TRAIN_UPDATES, log_every=1)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
@@ -576,6 +693,41 @@ def _train_phase(torch, legal_mask, dev):
         f"({k2_call_ms:.5f} ms per wrapper call), K2 device share of "
         f"collection {', '.join(f'{100 * x:.3f}%' for x in share)}")
     return dict(k2_launches=k2_launches, k2_ms=k2_ms, k2_call_ms=k2_call_ms)
+
+
+def _fp32_check(torch, net, dev):
+    """F1's gate: the trainer left both TF32 flags off, and its net's
+    forward on FP32_BATCH positions (FP32_PLIES random plies from the
+    opening, made on the CPU) agrees with a CPU copy to FP32_ATOL."""
+    from gymothelloenv_tpu_torch.core import bitboard as tb
+    from gymothelloenv_tpu_torch.core.featurize import make_state
+    from gymothelloenv_tpu_torch.ops import rollout as ro
+    from gymothelloenv_tpu_torch.utils.device import FLOAT32
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    require(flags == (False, False),
+            f"PPOSelfPlayTrainer left TF32 on (matmul, cuDNN) = {flags}")
+    s, _ = ro.rollout_chunk(ro.rollout_init(FP32_BATCH, "cpu"), SEED,
+                            FP32_PLIES)
+    n = FP32_BATCH
+    x = make_state(tb.BitState(
+        black=s.cur, white=s.opp, legal=s.legal,
+        turn=torch.full((n,), -1, dtype=torch.int8),
+        terminated=torch.zeros(n, dtype=torch.bool),
+        winner=torch.zeros(n, dtype=torch.int8)))
+    cpu_net = copy.deepcopy(net).cpu()
+    with torch.inference_mode():
+        logits, value = net(x.to(dev))
+        logits_c, value_c = cpu_net(x)
+    err = max(float((logits.cpu() - logits_c).abs().max()),
+              float((value.cpu() - value_c).abs().max()))
+    require(bool(torch.isfinite(logits).all()), "trainer net not finite")
+    require(err <= FP32_ATOL, f"trainer net on card vs CPU: {err:.2e} > "
+            f"{FP32_ATOL}")
+    say(f"[train] fp32: constructing PPOSelfPlayTrainer turned TF32 off for "
+        f"matmul and cuDNN (both were on; {FLOAT32}); its net on "
+        f"{FP32_BATCH} positions agrees with a CPU copy to {err:.2e} (atol "
+        f"{FP32_ATOL})")
 
 
 def _train_reference_phase(torch, dev):

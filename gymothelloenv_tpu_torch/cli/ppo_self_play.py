@@ -1,6 +1,8 @@
 """PPO self-play training CLI — the port of ``cli/ppo_self_play.py`` for
 the flags of the feed-forward mirror self-play path, plus ``--device``.
 A flag of the JAX CLI that is not ported yet is an argparse error.
+The net computes in float32 with TF32 off (``utils.device.use_float32``),
+and the first printed line says so.
 
 Usage:
     python -m gymothelloenv_tpu_torch.cli.ppo_self_play --num-updates 1000 \
@@ -17,6 +19,7 @@ from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig)
+from gymothelloenv_tpu_torch.utils.device import use_float32
 from gymothelloenv_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -69,12 +72,13 @@ def main(argv=None):
         num_test_games=args.num_test_games,
         test_interval=args.test_interval, seed=args.seed,
         hidden_size=args.hidden_size, width_mult=args.width_mult)
+    precision = use_float32()
     logger = MetricsLogger(args.log_dir) if args.log_dir else None
     try:
         trainer = PPOSelfPlayTrainer(
             env_cfg=env_cfg, ppo_cfg=ppo_cfg, run_cfg=run_cfg,
             log_fn=logger.log if logger else None, device=args.device)
-        print(f"device: {trainer.device}", flush=True)
+        print(f"device: {trainer.device}; {precision}", flush=True)
         trainer.train(args.num_updates, log_every=args.log_every)
         print("final eval:", trainer.evaluate(), flush=True)
     finally:

@@ -83,25 +83,51 @@ def fill(g: torch.Tensor, p: torch.Tensor, dr: int, dc: int) -> torch.Tensor:
     return g & p
 
 
+def lane_directions(lane: int, lanes: int) -> tuple:
+    """The directions that lane ``lane`` of a group of ``lanes`` threads
+    floods in the rollout kernel: ``DIRECTIONS[lane::lanes]``.  Over the
+    lanes of a group they partition the eight directions."""
+    if lanes not in (1, 2, 4, 8) or not 0 <= lane < lanes:
+        raise ValueError(f"lane {lane} of {lanes}: lanes must be 1, 2, 4 "
+                         "or 8 and 0 <= lane < lanes")
+    return DIRECTIONS[lane::lanes]
+
+
+def legal_mask_lane(mine: torch.Tensor, opp: torch.Tensor, lane: int,
+                    lanes: int) -> torch.Tensor:
+    """Lane ``lane``'s share of ``legal_mask``: the placements found along
+    ``lane_directions(lane, lanes)``.  OR over the lanes is the legal
+    mask."""
+    legal = torch.zeros_like(mine)
+    for dr, dc in lane_directions(lane, lanes):
+        legal = legal | shift(fill(mine, opp, dr, dc), dr, dc, 1)
+    return legal & ~(mine | opp)
+
+
 def legal_mask(mine: torch.Tensor, opp: torch.Tensor) -> torch.Tensor:
     """Legal placements for ``mine`` against ``opp`` (``legal_mask2``).
     This is the plain version of kernel K2 (``ops/legal_mask.py``)."""
-    legal = torch.zeros_like(mine)
-    for dr, dc in DIRECTIONS:
-        legal = legal | shift(fill(mine, opp, dr, dc), dr, dc, 1)
-    return legal & ~(mine | opp)
+    return legal_mask_lane(mine, opp, 0, 1)
+
+
+def resolve_flips_lane(onehot: torch.Tensor, mine: torch.Tensor,
+                       opp: torch.Tensor, lane: int,
+                       lanes: int) -> torch.Tensor:
+    """Lane ``lane``'s share of ``resolve_flips``: the flips along
+    ``lane_directions(lane, lanes)``.  OR over the lanes is the flips."""
+    flips = torch.zeros_like(mine)
+    for dr, dc in lane_directions(lane, lanes):
+        f = fill(onehot, opp, dr, dc)
+        valid = (shift(f, dr, dc, 1) & mine) != 0
+        flips = flips | torch.where(valid, f, torch.zeros_like(f))
+    return flips
 
 
 def resolve_flips(onehot: torch.Tensor, mine: torch.Tensor,
                   opp: torch.Tensor) -> torch.Tensor:
     """Disks flipped by placing at the single-bit ``onehot``
     (``resolve_flips2``)."""
-    flips = torch.zeros_like(mine)
-    for dr, dc in DIRECTIONS:
-        f = fill(onehot, opp, dr, dc)
-        valid = (shift(f, dr, dc, 1) & mine) != 0
-        flips = flips | torch.where(valid, f, torch.zeros_like(f))
-    return flips
+    return resolve_flips_lane(onehot, mine, opp, 0, 1)
 
 
 def popcount(x: torch.Tensor) -> torch.Tensor:

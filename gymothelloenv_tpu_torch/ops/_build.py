@@ -36,14 +36,16 @@ _SIGNATURES = {
     # mine, opp, out, n, device, stream
     "otb_legal_mask": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P),
     # cur, opp, legal, cur_out, opp_out, legal_out, episodes, words,
-    # n, num_steps, seed, device, stream
+    # n, num_steps, seed, lanes, device, stream
     "otb_rollout": (_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                    ctypes.c_int, ctypes.c_uint, ctypes.c_int, _P),
-    # the same, then variant, unroll, threads per block before device
+                    ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+                    _P),
+    # up to seed the same, then variant, unroll, threads per block, lanes,
+    # device, stream
     "otb_rollout_variant": (_P, _P, _P, _P, _P, _P, _P, _P,
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_int, _P),
+                            ctypes.c_int, ctypes.c_int, _P),
 }
 
 

@@ -12,6 +12,11 @@ kernel with one component stubbed out (``VARIANTS``; only ``full`` plays
 real games), an unroll factor and a block size, for cost attribution
 (``scripts/bench_rollout_variants.py`` of this package).
 
+Lanes: the kernel plays each game on a group of ``lanes`` threads (1, 2,
+4 or 8), each flooding its share of the eight directions
+(``core.bitboard.lane_directions``).  ``rollout_lanes`` picks it from N;
+every ``lanes`` gives the same games.
+
 Random bits: the kernel runs a Philox4x32-10 keyed by ``(seed, game)``
 with counter ``(ply // 4, game >> 32, 0, 0)`` and takes word ``ply % 4``.
 The plain version computes the same Philox in int64 tensor arithmetic, so
@@ -181,6 +186,57 @@ def rollout_chunk_plain(state: RolloutState, seed: int, num_steps: int,
 
 # --- kernel wrapper ----------------------------------------------------------
 
+LANES = (1, 2, 4, 8)
+# One warp on each warp scheduler of an H100 SXM: 132 SMs x 4 x 32 threads.
+SCHEDULER_THREADS = 132 * 4 * 32
+
+
+def rollout_lanes(n: int) -> int:
+    """Threads a game for a rollout of ``n`` games: the most lanes (1, 2,
+    4 or 8) whose ``n * lanes`` threads still fit one warp on each of the
+    H100's 528 warp schedulers (``SCHEDULER_THREADS``), and 1 once ``n``
+    alone fills them.
+
+    Why: a ply is a serial chain, and one warp per scheduler is what hides
+    its latency best per instruction issued.  Fewer warps leave schedulers
+    idle; a second warp on a scheduler brings the lanes' own costs (the
+    sampler, Philox and the state updates that every lane repeats, and the
+    reductions) without more overlap.  The grounds are the ``[rollout_lanes]``
+    line of ``chip_smoke.py`` (ms per 512-ply chunk for every lanes at N
+    1024 to 65,536), written down in PERF.md §5: at N 4096 Lanes 4 beats
+    Lanes 8 and 1, at N 16,384 and 65,536 Lanes 1 is the fastest.  The rule
+    and its thresholds were measured on the 132-SM H100 SXM only; a card
+    with another SM count (an H100 PCIe has 114) gets the same lanes,
+    unmeasured there."""
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    fitting = [lanes for lanes in LANES if n * lanes <= SCHEDULER_THREADS]
+    return fitting[-1] if fitting else 1
+
+
+# The lanes K3's stubbed variants and unroll 2/4 are built for besides 1:
+# what rollout_lanes picks at the bench's N 4096.
+BENCH_LANES = rollout_lanes(4096)
+# Every (variant, unroll, lanes) that csrc/rollout.cu instantiates (its
+# kBuilt rows): full at unroll 1 at every lanes, the profiler's other
+# configurations at lanes 1 and BENCH_LANES.
+BUILT = frozenset(
+    [("full", 1, lanes) for lanes in LANES]
+    + [(variant, unroll, lanes) for lanes in (1, BENCH_LANES)
+       for variant, unroll in (("nosample", 1), ("noflips", 1),
+                               ("nopass", 1), ("full", 2), ("full", 4))])
+
+
+def built(variant: str, unroll: int = 1, lanes: int = 1) -> bool:
+    """Whether ``csrc/rollout.cu`` instantiates this configuration."""
+    return (variant, unroll, lanes) in BUILT
+
+
+def _check_lanes(lanes: int) -> None:
+    if lanes not in LANES:
+        raise ValueError(f"lanes must be one of {LANES}, got {lanes}")
+
+
 def _check(state: RolloutState, num_steps: int,
            words: torch.Tensor | None) -> None:
     t = (state.cur, state.opp, state.legal)
@@ -207,7 +263,8 @@ def _launch(entry: str, state: RolloutState, seed: int, num_steps: int,
             words: torch.Tensor | None, episodes: torch.Tensor,
             *knobs: int) -> RolloutState:
     """One launch of the C entry ``entry`` on the state's card; ``knobs``
-    go between the seed and the device (K3's variant, unroll, threads)."""
+    go between the seed and the device (K1's lanes; K3's variant, unroll,
+    threads, lanes)."""
     device = state.cur.device
     if device.type != "cuda":
         raise ValueError(f"the rollout kernels run on cpu or cuda, not "
@@ -244,18 +301,24 @@ def _new_episodes(state: RolloutState,
 
 def rollout_chunk(state: RolloutState, seed: int, num_steps: int,
                   words: torch.Tensor | None = None,
-                  episodes: torch.Tensor | None = None):
+                  episodes: torch.Tensor | None = None,
+                  lanes: int | None = None):
     """Run ``num_steps`` random plies for every game in ONE kernel launch
-    (Philox from ``seed``, or the injected ``words``).  Returns
-    ``(new_state, episodes)``; ``episodes`` is an int64 0-d tensor, and a
-    given ``episodes`` tensor is added to in place."""
+    (Philox from ``seed``, or the injected ``words``), ``lanes`` threads a
+    game (``None``: ``rollout_lanes(N)``; every lanes gives the same
+    result).  Returns ``(new_state, episodes)``; ``episodes`` is an int64
+    0-d tensor, and a given ``episodes`` tensor is added to in place."""
     _check(state, num_steps, words)
+    if lanes is None:
+        lanes = rollout_lanes(state.cur.shape[0])
+    _check_lanes(lanes)
     episodes = _new_episodes(state, episodes)
     if state.cur.device.type == "cpu":
         new, eps = rollout_chunk_plain(state, seed, num_steps, words)
         episodes += eps
         return new, episodes
-    out = _launch("otb_rollout", state, seed, num_steps, words, episodes)
+    out = _launch("otb_rollout", state, seed, num_steps, words, episodes,
+                  lanes)
     if state.cur.numel():
         rollout_chunk.launches += 1
     return out, episodes
@@ -266,21 +329,25 @@ rollout_chunk.launches = 0
 
 # K3's knobs: threads per block stands in for the TPU script's grid of
 # 1, 2 or 4 programs.  Unroll 2 and 4 are built for ``full`` alone, the
-# profiler's only unrolled configurations.
+# profiler's only unrolled configurations (``BUILT``).
 THREADS = (32, 64, 128)
 UNROLLS = (1, 2, 4)
 
 
 def rollout_variant_chunk(state: RolloutState, seed: int, num_steps: int,
                           variant: str, unroll: int = 1, threads: int = 32,
+                          lanes: int = BENCH_LANES,
                           words: torch.Tensor | None = None,
                           episodes: torch.Tensor | None = None):
     """K3: ``rollout_chunk`` with ``variant`` (one of ``VARIANTS``), the
-    ply loop unrolled ``unroll`` times (2 and 4 for ``full`` only) and
-    ``threads`` per block, in ONE launch.  Philox is keyed by (seed,
-    game), so ``threads`` and ``unroll`` never change the result.  CPU tensors take the plain loop
-    (the knobs are checked, then have nothing to change).  Returns
-    ``(new_state, episodes)`` as ``rollout_chunk`` does."""
+    ply loop unrolled ``unroll`` times, ``threads`` per block, ``lanes``
+    threads a game (default: K1's at the bench's N 4096), in ONE launch.
+    Only the configurations of ``BUILT`` exist; another raises
+    ``ValueError``.
+    Philox is keyed by (seed, game), so no knob but ``variant`` changes
+    the result.  CPU tensors take the plain loop (the knobs are checked,
+    then have nothing to change).  Returns ``(new_state, episodes)`` as
+    ``rollout_chunk`` does."""
     _check(state, num_steps, words)
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
@@ -289,9 +356,10 @@ def rollout_variant_chunk(state: RolloutState, seed: int, num_steps: int,
         raise ValueError(f"threads must be one of {THREADS}, got {threads}")
     if unroll not in UNROLLS:
         raise ValueError(f"unroll must be one of {UNROLLS}, got {unroll}")
-    if unroll != 1 and variant != "full":
-        raise ValueError(f"unroll {unroll} is built for variant 'full' "
-                         f"only, got {variant!r}")
+    _check_lanes(lanes)
+    if not built(variant, unroll, lanes):
+        raise ValueError(f"variant {variant!r} at unroll {unroll}, lanes "
+                         f"{lanes} is not built (ops/rollout.py BUILT)")
     episodes = _new_episodes(state, episodes)
     if state.cur.device.type == "cpu":
         new, eps = rollout_chunk_plain(state, seed, num_steps, words,
@@ -299,7 +367,7 @@ def rollout_variant_chunk(state: RolloutState, seed: int, num_steps: int,
         episodes += eps
         return new, episodes
     out = _launch("otb_rollout_variant", state, seed, num_steps, words,
-                  episodes, VARIANTS.index(variant), unroll, threads)
+                  episodes, VARIANTS.index(variant), unroll, threads, lanes)
     if state.cur.numel():
         rollout_variant_chunk.launches += 1
     return out, episodes
@@ -309,13 +377,14 @@ rollout_variant_chunk.launches = 0
 
 
 def rollout_chunks(state: RolloutState, seed0: int, n_chunks: int,
-                   num_steps: int):
+                   num_steps: int, lanes: int | None = None):
     """``n_chunks`` chunks back to back, chunk ``i`` with seed
     ``seed0 + i`` (``rollout_chunks_scanned``): a host loop of launches
     into one episode counter, read once at the end (the only
-    synchronisation).  Returns ``(new_state, total_episodes)``."""
+    synchronisation).  ``lanes`` as for ``rollout_chunk``.  Returns
+    ``(new_state, total_episodes)``."""
     total = torch.zeros((), dtype=torch.int64, device=state.cur.device)
     for i in range(n_chunks):
         state, total = rollout_chunk(state, seed0 + i, num_steps,
-                                     episodes=total)
+                                     episodes=total, lanes=lanes)
     return state, int(total.item())

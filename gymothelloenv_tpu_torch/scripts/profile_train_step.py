@@ -10,7 +10,8 @@ runs one warm-up update, then traces one collection and one
 each phase it prints the wall seconds, the summed device time of its
 kernels, the device's idle share (1 - device time / wall time, an upper
 bound on idleness where kernels overlap), the kernel launches, and the
-kernels with the most device time.  Float32 with TF32 off.
+kernels with the most device time.  Float32 with TF32 off, as the
+trainer sets it.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from gymothelloenv_tpu_torch.ops.shuffle import draw_words
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig)
 from gymothelloenv_tpu_torch.train.self_play import collect_rollout
+from gymothelloenv_tpu_torch.utils.device import use_float32
 
 
 def _device_us(event) -> float:
@@ -64,11 +66,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_train_step traces the card; no CUDA "
                          "device is available")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
-    print(f"device: {torch.cuda.get_device_name(dev)}; N={num_envs}, "
-          f"T={num_steps}, wide2", flush=True)
+    print(f"device: {torch.cuda.get_device_name(dev)}; {use_float32()}; "
+          f"N={num_envs}, T={num_steps}, wide2", flush=True)
     ppo_cfg = PPOConfig(lr=2.5e-4, entropy_coef=0.01, num_updates=2)
     trainer = PPOSelfPlayTrainer(
         EnvConfig(num_disk_as_reward=True), ppo_cfg,

@@ -31,7 +31,8 @@ from gymothelloenv_tpu_torch.policies.scripted import (greedy_policy,
 from gymothelloenv_tpu_torch.train import tournament
 from gymothelloenv_tpu_torch.train.self_play import (Draws, collect_rollout,
                                                      selfplay_init)
-from gymothelloenv_tpu_torch.utils.device import resolve_device
+from gymothelloenv_tpu_torch.utils.device import (resolve_device,
+                                                  use_float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +97,7 @@ class PPOSelfPlayTrainer:
                     f"SelfPlayConfig.{name}={getattr(self.run_cfg, name)!r} "
                     "is not ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
+        use_float32()
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
                                "device='cpu' to train on the CPU")

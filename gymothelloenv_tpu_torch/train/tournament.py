@@ -22,7 +22,8 @@ from gymothelloenv_tpu_torch.core.featurize import make_state
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.envs.bit_vector_env import draw_rand_left
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
-from gymothelloenv_tpu_torch.utils.device import resolve_device
+from gymothelloenv_tpu_torch.utils.device import (resolve_device,
+                                                  use_float32)
 
 PolicyFn = Callable[[bb.BitState, "torch.Generator | None"], torch.Tensor]
 
@@ -63,7 +64,10 @@ def tally(winners: torch.Tensor):
 
 def net_tournament_policy(net: torch.nn.Module) -> PolicyFn:
     """Wrap a ``PolicyNet`` as a sampling tournament policy
-    (``Policy.act`` served over pipes, ppo_run_self_play.py:383-389)."""
+    (``Policy.act`` served over pipes, ppo_run_self_play.py:383-389).
+    Sets float32 numerics (``use_float32``)."""
+    use_float32()
+
     def act(state: bb.BitState, generator=None) -> torch.Tensor:
         with torch.inference_mode():
             logits, _ = net(make_state(state))

@@ -1,4 +1,4 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution and float32 numerics for the port's entry points."""
 
 from __future__ import annotations
 
@@ -16,3 +16,19 @@ def resolve_device(device=None) -> torch.device:
                 "the port on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+FLOAT32 = "float32, TF32 off for matmul and cuDNN"
+
+
+def use_float32() -> str:
+    """Compute float32 matmuls and cuDNN convolutions in full float32.
+
+    torch leaves ``torch.backends.cudnn.allow_tf32`` True, so a card
+    convolves float32 inputs in TF32 (a 10-bit mantissa) unless told
+    otherwise; the port holds its net, loss and update to the JAX
+    package's float32.  Every entry point that runs the net calls this.
+    The flags are process-wide.  Returns a description for a log line."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return FLOAT32

@@ -1,0 +1,62 @@
+"""The port's entry points compute the net in float32: each one that runs
+the net switches TF32 off for matmuls and cuDNN convolutions
+(``utils.device.use_float32``), whatever the flags were before.  The flags
+are process-wide, so every test starts from both on and restores them."""
+
+import contextlib
+import io
+
+import pytest
+import torch
+
+from gymothelloenv_tpu_torch.cli import ppo_self_play as cli
+from gymothelloenv_tpu_torch.models.nets import make_policy_net
+from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
+                                                       SelfPlayConfig)
+from gymothelloenv_tpu_torch.train.tournament import net_tournament_policy
+from gymothelloenv_tpu_torch.utils.device import FLOAT32, use_float32
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+
+def _flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+@pytest.fixture
+def tf32_on():
+    before = _flags()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        before
+
+
+def test_use_float32_turns_both_flags_off(tf32_on):
+    assert _flags() == (True, True)
+    assert use_float32() == FLOAT32 == "float32, TF32 off for matmul and cuDNN"
+    assert _flags() == (False, False)
+
+
+def test_cli_leaves_tf32_off_and_prints_the_fp32_line(tf32_on):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["--device", "cpu", "--num-envs", "4", "--num-steps", "2",
+                  "--num-updates", "1", "--hidden-size", "8",
+                  "--num-test-games", "2", "--log-every", "1"])
+    assert _flags() == (False, False)
+    first = out.getvalue().splitlines()[0]
+    assert first == f"device: cpu; {FLOAT32}"
+
+
+def test_trainer_constructor_leaves_tf32_off(tf32_on):
+    PPOSelfPlayTrainer(run_cfg=SelfPlayConfig(num_envs=4, num_steps=2,
+                                              hidden_size=8),
+                       device="cpu")
+    assert _flags() == (False, False)
+
+
+def test_net_tournament_policy_leaves_tf32_off(tf32_on):
+    net_tournament_policy(make_policy_net(1, 8, seed=0, device="cpu"))
+    assert _flags() == (False, False)

@@ -235,3 +235,28 @@ def test_k1_kernel_matches_plain_on_card():
         assert torch.equal(got.cur.cpu(), want.cur)
         assert torch.equal(got.legal.cpu(), want.legal)
         assert int(ge) == int(we)
+
+
+@pytest.mark.parametrize("lanes", ro.LANES)
+def test_k1_kernel_matches_plain_at_every_lanes_on_card(lanes):
+    """Each lane count on injected words and on Philox at a ragged N (not
+    a multiple of 32) and at N = 1: exact, episodes too."""
+    _need_card()
+    dev = torch.device("cuda")
+    for n, steps in ((4099, 64), (1, 64)):
+        g = torch.Generator().manual_seed(n)
+        words = torch.randint(-2 ** 31, 2 ** 31, (steps, n),
+                              dtype=torch.int32, generator=g)
+        s0 = ro.rollout_init(n, device="cpu")
+        s_dev = ro.RolloutState(*(x.to(dev) for x in (s0.cur, s0.opp,
+                                                      s0.legal)))
+        for w in (words, None):
+            want, we = ro.rollout_chunk_plain(s0, 8, steps, words=w)
+            before = ro.rollout_chunk.launches
+            got, ge = ro.rollout_chunk(
+                s_dev, 8, steps, words=None if w is None else w.to(dev),
+                lanes=lanes)
+            assert ro.rollout_chunk.launches == before + 1
+            for f in ("cur", "opp", "legal"):
+                assert torch.equal(getattr(got, f).cpu(), getattr(want, f))
+            assert int(ge) == int(we) > 0

@@ -163,3 +163,22 @@ def test_variant_kernels_match_plain_on_card():
         got, ge = ro.rollout_variant_chunk(s_dev, 3, steps, **knobs)
         assert torch.equal(got.cur, k1.cur) and torch.equal(got.opp, k1.opp)
         assert int(ge) == int(k1_eps)
+
+
+def test_variant_configs_match_plain_at_bench_lanes_on_card():
+    """Every profiler configuration at the lanes K1 runs at for the bench
+    (stubs, unroll, block size) against its variant's plain loop on
+    Philox at a ragged N: exact."""
+    _need_card()
+    dev = torch.device("cuda")
+    n, steps = 333, 90
+    s0 = ro.rollout_init(n, device="cpu")
+    s_dev = ro.RolloutState(*(x.to(dev) for x in (s0.cur, s0.opp, s0.legal)))
+    plain = {v: ro.rollout_chunk_plain(s0, 4, steps, variant=v)
+             for v in ro.VARIANTS}
+    for name, knobs in brv.configs(ro.BENCH_LANES):
+        want, we = plain[knobs["variant"]]
+        got, ge = ro.rollout_variant_chunk(s_dev, 4, steps, **knobs)
+        for f in ("cur", "opp", "legal"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), name
+        assert int(ge) == int(we), name
