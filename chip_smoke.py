@@ -7,17 +7,22 @@ Builds the port's kernels with nvcc, holds each kernel against its plain
 PyTorch version, then drives the main paths, each with the launch counts
 set to 0 just before it and read just after:
 
+  * kernel K2's own benchmark, gymothelloenv_tpu_torch/scripts/
+    bench_legal_mask.py (the port of scripts/bench_pallas.py, K2's only
+    caller in the JAX package);
   * the fused random-play rollout (kernel K1) at the bench protocol, with
     each game on the lane group that ops/rollout.py rollout_lanes picks,
     and the wide2 policy net against the greedy opponent through the
-    bitboard engine (kernel K2 on every ply);
+    bitboard engine (the ply kernel, csrc/step.cu, on every ply; K2 once
+    per bit_reset);
   * the rollout-variant profiler (kernel K3: K1 with one component stubbed
     out, or at another unroll / block size), every configuration of
     gymothelloenv_tpu_torch/scripts/bench_rollout_variants.py at the bench
     protocol;
   * PPO self-play training: PPOSelfPlayTrainer at wide2 with the tuned
     recipe (N 1024, T 64, lr 2.5e-4, entropy 0.01) for 3 updates and one
-    200-game evaluation (K2 on every ply of collection and evaluation);
+    200-game evaluation (the ply kernel on every ply and every reset of
+    collection and evaluation; K2 once per bit_reset);
     then one ppo_update on the card against the same update on the CPU
     from the same params, rollout and shuffle words, at a reduced size.
 
@@ -28,7 +33,10 @@ outside a checkout of the repository.
 K1 is held against its plain version at every lane count (1, 2, 4, 8) on
 injected words (also at a ragged N and at N = 1) and on Philox, and timed
 at every lane count for N 1024 to 65,536 ([rollout_lanes], the grounds of
-rollout_lanes).
+rollout_lanes).  The ply kernel and its reset_where are held bit for bit
+against their plain versions in every mode, with both flags each way, on
+reachable states with terminated games and actions of every class
+([bit_step]); the main paths must not call those plain versions.
 
 Output: one flushed line before and after every phase; then a JSON line
 with every kernel's launches, error against its plain version, times and
@@ -41,10 +49,12 @@ the script turns both flags on and checks that constructing the trainer
 turns them off and that its net then agrees with a CPU copy.
 """
 
+import contextlib
 import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -62,6 +72,13 @@ INT_OPS_PER_S = 67e12
 # directions + 10 ops = 166 64-bit ops (shifts with a column mask count
 # 2), each 64-bit op two 32-bit instructions.
 K2_OPS_PER_BOARD = 2 * 166
+# The ply kernel (csrc/step.cu) a stepped game, counted the same way: one
+# flips flood (187 64-bit ops), the opponent's legal flood (166) and the
+# placement and selects (8), all x2, three popcounts (3 each) and the
+# terminal rules (~25).  The mover's flood (2 x 166) runs only where the
+# opponent has no move; it is counted from each run's data.
+PLY_OPS_PER_GAME = 2 * (187 + 166 + 8) + 3 * 3 + 25
+PLY_SECOND_FLOOD_OPS = 2 * 166
 # One K1 ply: the flips of the sampled move (187 64-bit ops), the
 # opponent's legal flood (166), state updates (10), all x2; plus ~35 for
 # the sampler and a quarter of a Philox4x32-10 call (~100).  The mover's
@@ -78,6 +95,12 @@ K3_OPS_PER_PLY = {"full": K1_OPS_PER_PLY,
 
 SEED = 0
 LEGAL_BOARDS = 1_000_003      # odd on purpose: the ragged edge
+BENCH_LEGAL_BATCH = 65_536    # scripts/bench_pallas.py's default
+BIT_STEP_NS = (65_536, 1_025)  # [bit_step] parity: large, and ragged
+BIT_STEP_TIME_NS = (512, 1024)  # the evaluation's and the collector's N
+# SASS integer instructions (logic, shifts, adds) per clock per SM on
+# compute capability 9.0 (CUDA C++ Programming Guide, throughput table).
+INT_SASS_PER_CLOCK_PER_SM = 64
 ROLLOUT_N = 4096              # bench protocol (BASELINE.json configs[1])
 ROLLOUT_STEPS = 512
 ROLLOUT_CHUNKS = 64
@@ -134,45 +157,6 @@ def bound_ms(nbytes, ops):
         "operations"
 
 
-def cuda_ms(torch, fn, reps):
-    """Mean ms per call of ``fn`` over ``reps`` back-to-back calls after one
-    warm-up call, between two CUDA events: the caller's view, which for a
-    short kernel is the host's launch overhead."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(torch, fn, reps, spin_cycles=20_000_000):
-    """Mean device ms per launch of ``fn``: the launches are queued behind
-    a GPU spin, so they run back to back with the host's launch overhead
-    hidden.  Fails if the host could not queue them within the spin."""
-    fn()
-    torch.cuda.synchronize()
-    spin, start, end = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(3))
-    spin.record()
-    torch.cuda._sleep(spin_cycles)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host_ms = 1e3 * (time.perf_counter() - t0)
-    end.record()
-    torch.cuda.synchronize()
-    require(host_ms < spin.elapsed_time(start),
-            f"{reps} launches took {host_ms:.2f} ms to queue, longer than "
-            "the GPU spin: the device time would include host gaps")
-    return start.elapsed_time(end) / reps
-
-
 def word_bits_err(tb, a, b):
     """Most differing bits in any word (0 = exact)."""
     return int(tb.popcount(a ^ b).max().item()) if a.numel() else 0
@@ -194,11 +178,14 @@ def main():
     from gymothelloenv_tpu_torch.models.nets import make_policy_net
     from gymothelloenv_tpu_torch.ops import _build
     from gymothelloenv_tpu_torch.ops import rollout as ro
+    from gymothelloenv_tpu_torch.ops import step
     from gymothelloenv_tpu_torch.ops.legal_mask import (legal_mask,
                                                         legal_mask_plain)
     from gymothelloenv_tpu_torch.policies.scripted import greedy_policy
+    from gymothelloenv_tpu_torch.scripts import bench_legal_mask as blm
     from gymothelloenv_tpu_torch.scripts import bench_rollout_variants as brv
     from gymothelloenv_tpu_torch.train import tournament as tour
+    from gymothelloenv_tpu_torch.utils import timing
 
     dev = torch.device(DEVICE_TYPE, 0)
 
@@ -243,8 +230,8 @@ def main():
     want = legal_mask_plain(cur, opp)
     require(torch.equal(got, want), "K2 disagrees with its plain version")
     nbytes = 24 * LEGAL_BOARDS
-    k2_big = dict(ms=device_ms(torch, lambda: legal_mask(cur, opp), 100),
-                  plain_ms=cuda_ms(torch, lambda: legal_mask_plain(cur, opp),
+    k2_big = dict(ms=timing.device_ms(lambda: legal_mask(cur, opp), 100),
+                  plain_ms=timing.call_ms(lambda: legal_mask_plain(cur, opp),
                                    3))
     k2_big["bound_ms"], _ = bound_ms(nbytes, K2_OPS_PER_BOARD * LEGAL_BOARDS)
     # The main path's shape: bit_step stacks both sides of 512 games.
@@ -252,18 +239,39 @@ def main():
     o = torch.cat([opp[:512], cur[:512]])
     got_s, want_s = legal_mask(m, o), legal_mask_plain(m, o)
     require(torch.equal(got_s, want_s), "K2 disagrees at the eval shape")
-    k2 = dict(ms=device_ms(torch, lambda: legal_mask(m, o), 200),
-              call_ms=cuda_ms(torch, lambda: legal_mask(m, o), 200),
-              plain_ms=cuda_ms(torch, lambda: legal_mask_plain(m, o), 20))
+    k2 = dict(ms=timing.device_ms(lambda: legal_mask(m, o), 200),
+              call_ms=timing.call_ms(lambda: legal_mask(m, o), 200),
+              plain_ms=timing.call_ms(lambda: legal_mask_plain(m, o), 20))
     k2["bound_ms"], k2["bound_by"] = bound_ms(24 * 1024,
                                               K2_OPS_PER_BOARD * 1024)
     k2["max_abs_err"] = max(word_bits_err(tb, got, want),
                             word_bits_err(tb, got_s, want_s))
+    k2_big.update(_sass_bound(torch, info.path, "legal_mask_kernel",
+                              LEGAL_BOARDS))
+    # K2's own path, the one the JAX package gives it (bench_pallas.py):
+    # its count starts at 0 here.
+    legal_mask.launches = 0
+    bench = blm.run(BENCH_LEGAL_BATCH, dev,
+                    out=lambda line: say(f"[legal_mask] bench: {line}"))
+    bench["launches"] = legal_mask.launches
+    require(bench["launches"] > 0, "K2 was not launched on its benchmark")
+    sass = (f"{k2_big['sass_per_board']} SASS instructions a board, a bound "
+            f"of {k2_big['sass_bound_ms']:.4f} ms at "
+            f"{INT_SASS_PER_CLOCK_PER_SM} a clock per SM on "
+            f"{k2_big['sms']} SMs at {k2_big['sm_clock_mhz']} MHz "
+            f"({100 * k2_big['sass_bound_ms'] / k2_big['ms']:.1f}% of it)"
+            if k2_big["sass_per_board"] else "cuobjdump not found: no SASS "
+            "count, the formula's bound only")
     say(f"[legal_mask] ok: exact on {LEGAL_BOARDS} boards: kernel "
         f"{k2_big['ms']:.4f} ms, plain {k2_big['plain_ms']:.3f} ms, bound "
-        f"{k2_big['bound_ms']:.4f} ms; at 1024 boards: kernel "
+        f"{k2_big['bound_ms']:.4f} ms; {sass}; at 1024 boards: kernel "
         f"{k2['ms']:.4f} ms on the device, {k2['call_ms']:.4f} ms per "
-        f"wrapper call, plain {k2['plain_ms']:.3f} ms")
+        f"wrapper call, plain {k2['plain_ms']:.3f} ms; bench at "
+        f"{BENCH_LEGAL_BATCH} random boards exact, {bench['launches']} "
+        "launches")
+
+    # 3b. bit_step (the ply kernel and reset_where) -------------------------
+    ply = _bit_step_phase(torch, tb, ro, step, timing, dev, gen)
 
     # 4. rollout_parity (K1, injected words) -------------------------------
     say(f"[rollout_parity] start: K1 words mode vs plain ply loop at lanes "
@@ -292,7 +300,7 @@ def main():
         if n == ROLLOUT_N:
             words_eps = int(want_eps)
     s0 = ro.rollout_init(ROLLOUT_N, dev)
-    words_ms = device_ms(torch, lambda: ro.rollout_chunk(
+    words_ms = timing.device_ms(lambda: ro.rollout_chunk(
         s0, 0, PARITY_STEPS, words=words), 5)
     say(f"[rollout_parity] ok: state and episodes exact at every lanes "
         f"({words_eps} episodes at N {ROLLOUT_N}); kernel {words_ms:.3f} ms "
@@ -303,27 +311,32 @@ def main():
                                           dev)
     k1["lanes_ms"] = _rollout_lanes_phase(torch, ro, dev)
 
-    # 6. eval (K2 inside bit_step) ----------------------------------------
+    # 6. eval (the ply kernel on every ply, K2 in bit_reset) -----------------
     say(f"[eval] start: wide2 PolicyNet (width_mult={WIDTH_MULT}, "
         f"hidden={HIDDEN}, seeded init) vs greedy, {EVAL_GAMES} games, "
         f"init_rand_steps={EVAL_RAND_STEPS}")
     net = make_policy_net(WIDTH_MULT, HIDDEN, seed=SEED, device=dev)
-    # Main path: K2's count starts at 0 here.
+    # Main path: the counts of K2 and the ply kernel start at 0 here.
     legal_mask.launches = 0
+    step.bit_step.launches = 0
     act = tour.net_tournament_policy(net)
     egen = torch.Generator(device=dev).manual_seed(SEED)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    wins, draws, losses = tour.evaluate(act, greedy_policy, EVAL_GAMES,
-                                        EVAL_RAND_STEPS, generator=egen,
-                                        device=dev)
+    with _no_plain(tb) as plain_calls:
+        wins, draws, losses = tour.evaluate(act, greedy_policy, EVAL_GAMES,
+                                            EVAL_RAND_STEPS, generator=egen,
+                                            device=dev)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
     launches = {"legal_mask": legal_mask.launches,
+                "bit_step": step.bit_step.launches,
                 "rollout": rollout_launches}
     require(wins + draws + losses == EVAL_GAMES, "eval lost games")
     for kname, count in launches.items():
         require(count > 0, f"kernel {kname} was not launched on the main path")
+    require(not plain_calls, f"the evaluation ran the ply's plain version "
+            f"on the card: {plain_calls[:3]}")
     say(f"[eval] ok: W/D/L {wins}/{draws}/{losses} in {eval_s:.2f} s; "
         f"main-path launches {launches}")
 
@@ -353,8 +366,8 @@ def main():
     # 8. variants (K3: parity, then the profiler as its main path) ----------
     k3 = _variants_phase(torch, tb, ro, brv, dev, words)
 
-    # 9. train (K2 on every ply) and 10. train_reference ----------------------
-    train = _train_phase(torch, legal_mask, dev)
+    # 9. train (the ply kernel on every ply) and 10. train_reference ----------
+    train = _train_phase(torch, tb, legal_mask, step, timing, dev)
     _train_reference_phase(torch, dev)
 
     # 11. kernels line --------------------------------------------------------
@@ -362,15 +375,40 @@ def main():
         dict(name="legal_mask", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/legal_mask.cu",
              replaces="gymothelloenv_tpu/ops/pallas_bitboard.py:76",
-             launches=launches["legal_mask"] + train["k2_launches"],
-             launches_by_path={"eval": launches["legal_mask"],
+             launches=(bench["launches"] + launches["legal_mask"]
+                       + train["k2_launches"]),
+             launches_by_path={"bench": bench["launches"],
+                               "eval": launches["legal_mask"],
                                "train": train["k2_launches"]},
              library_ms=None,
              equal=True, tolerance="exact", shape="2 x 512 boards",
-             train_shape="2 x 1024 boards",
-             train_ms=train["k2_ms"], train_call_ms=train["k2_call_ms"],
              ms_1m=k2_big["ms"], plain_ms_1m=k2_big["plain_ms"],
-             bound_ms_1m=k2_big["bound_ms"], **k2),
+             bound_ms_1m=k2_big["bound_ms"],
+             sass_per_board=k2_big["sass_per_board"],
+             sass_bound_ms_1m=k2_big["sass_bound_ms"],
+             bench_boards=BENCH_LEGAL_BATCH, bench_ms=bench["ms"],
+             bench_call_ms=bench["call_ms"],
+             bench_plain_ms=bench["plain_ms"], **k2),
+        dict(name="bit_step", route="cuda",
+             source="gymothelloenv_tpu_torch/csrc/step.cu",
+             replaces="no Pallas kernel: gymothelloenv_tpu/core/bitboard.py"
+                      ":254 bit_step (XLA-fused); carries K2's flood on the "
+                      "main path",
+             launches=launches["bit_step"] + train["bit_step_launches"],
+             launches_by_path={"eval": launches["bit_step"],
+                               "train": train["bit_step_launches"]},
+             library_ms=None, equal=True, tolerance="exact",
+             shape="1024 games, where mode (the collector's)",
+             train_ms=train["ply_ms"], **ply["bit_step"]),
+        dict(name="reset_where", route="cuda",
+             source="gymothelloenv_tpu_torch/csrc/step.cu",
+             replaces="no Pallas kernel: gymothelloenv_tpu/core/engine.py"
+                      ":120 BitEngine.reset_where (XLA-fused)",
+             launches=train["reset_launches"],
+             launches_by_path={"train": train["reset_launches"]},
+             library_ms=None, equal=True, tolerance="exact",
+             shape="1024 games (the collector's)",
+             train_ms=train["reset_ms"], **ply["reset_where"]),
         dict(name="rollout", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/rollout.cu",
              replaces="gymothelloenv_tpu/ops/pallas_rollout.py:193",
@@ -512,6 +550,7 @@ def _variants_phase(torch, tb, ro, brv, dev, words):
     lanes 1 and BENCH_LANES and on the profiler's own Philox chunk, full
     at every knob against K1, then every profiler configuration at the
     lanes K1 runs at.  Returns the kernels-line fields."""
+    from gymothelloenv_tpu_torch.utils import timing
     steps = words.shape[0]
     lanes = ro.rollout_lanes(ROLLOUT_N)
     configs = brv.configs(lanes)
@@ -547,7 +586,7 @@ def _variants_phase(torch, tb, ro, brv, dev, words):
                                     f"{variant} unroll {unroll} lanes "
                                     f"{each} (words) vs plain"))
                 checked += 1
-    parity_ms = device_ms(torch, lambda: ro.rollout_variant_chunk(
+    parity_ms = timing.device_ms(lambda: ro.rollout_variant_chunk(
         s0, 0, steps, "full", lanes=lanes, words=words), 5)
     # The profiler's kernels (Philox, ROLLOUT_STEPS plies from the
     # opening), each against its variant's plain loop; full's against K1.
@@ -616,9 +655,236 @@ def _variants_phase(torch, tb, ro, brv, dev, words):
                 lanes=lanes, configs=rows)
 
 
-def _train_phase(torch, legal_mask, dev):
+def _sass_bound(torch, library, kernel, boards):
+    """The integer-rate bound of a straight-line one-thread-a-board kernel
+    from its compiled code: its SASS instructions (cuobjdump; NOPs and the
+    closing self-branch left out) x boards over INT_SASS_PER_CLOCK_PER_SM
+    x SMs x the card's top SM clock.  Fields None without cuobjdump."""
+    out = dict(sass_per_board=None, sass_bound_ms=None,
+               sms=torch.cuda.get_device_properties(0).multi_processor_count,
+               sm_clock_mhz=None)
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return out
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    body = sass.split("Function : ")
+    found = [b for b in body[1:] if kernel in b.split("\n", 1)[0]]
+    require(len(found) == 1, f"{kernel}: {len(found)} SASS functions")
+    ops = [line.split("*/", 1)[1].split(";")[0].split()
+           for line in found[0].splitlines()
+           if line.strip().startswith("/*") and ";" in line]
+    ops = [op for op in ops if op]
+    names = [op[1] if op[0].startswith("@") else op[0] for op in ops]
+    branches = [n for n in names if n.startswith("BRA")]
+    require(len(branches) == 1, f"{kernel} branches {len(branches)} times: "
+            "its SASS count is not a per-board count")
+    count = sum(1 for n in names if n not in ("NOP", "BRA"))
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=10, check=True).stdout.split()[0]
+    out["sm_clock_mhz"] = int(clock)
+    out["sass_per_board"] = count
+    out["sass_bound_ms"] = 1e3 * count * boards / (
+        INT_SASS_PER_CLOCK_PER_SM * out["sms"] * int(clock) * 1e6)
+    return out
+
+
+@contextlib.contextmanager
+def _no_plain(tb):
+    """Record each call of the ply's plain versions (bit_step_plain,
+    reset_where_plain) while the block runs: on the card a main path must
+    make none."""
+    calls = []
+    real = (tb.bit_step_plain, tb.reset_where_plain)
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    tb.bit_step_plain, tb.reset_where_plain = map(counted, real)
+    try:
+        yield calls
+    finally:
+        tb.bit_step_plain, tb.reset_where_plain = real
+
+
+def _ply_inputs(torch, tb, ro, n, dev, gen):
+    """``n`` reachable states (K1 games after a 512-ply warm-up, each
+    taken at one of the next 64 plies, so every stage of a game is there)
+    with a random mover, a tenth
+    of them terminated; an action per game of one of six classes: legal
+    (half), an empty cell that is not legal, an occupied cell, -1, 64 and
+    100; and a random ``do`` and ``done``."""
+    s, _ = ro.rollout_chunk(ro.rollout_init(n, dev), SEED, ROLLOUT_STEPS)
+    cur, opp = s.cur.clone(), s.opp.clone()
+    for i in range(64):      # a snapshot after each of 64 plies, uniformly
+        s, _ = ro.rollout_chunk(s, 2000 + i, 1)
+        take = torch.rand(n, generator=gen, device=dev) < 1 / (i + 2)
+        cur = torch.where(take, s.cur, cur)
+        opp = torch.where(take, s.opp, opp)
+
+    def coin(p):
+        return torch.rand(n, generator=gen, device=dev) < p
+
+    def pick(word):
+        return tb.random_legal_bit(
+            word, tb.uniform_index(tb.popcount(word), gen))
+
+    white, term = coin(0.5), coin(0.1)
+    black_w = torch.where(white, opp, cur)
+    white_w = torch.where(white, cur, opp)
+    margin = tb.popcount(white_w) - tb.popcount(black_w)
+    state = tb.BitState(
+        black=black_w, white=white_w,
+        turn=torch.where(white, 1, -1).to(torch.int8),
+        legal=torch.where(term, 0, tb.legal_mask(cur, opp)),
+        terminated=term,
+        winner=torch.where(term, torch.sign(margin), 0).to(torch.int8))
+    disks = black_w | white_w
+    kind = torch.randint(0, 10, (n,), generator=gen, device=dev)
+    action = pick(state.legal)                      # kinds 0-4
+    for k, a in ((5, pick(~disks & ~state.legal)), (6, pick(disks)),
+                 (7, -1), (8, 64), (9, 100)):
+        action = torch.where(kind == k, a, action)
+    return state, action, coin(0.7), coin(0.5)
+
+
+def _ply_err(torch, tb, got, want):
+    """Largest difference between two ply results (or two states): bits
+    in a word, else the absolute difference of a field; 0 = exact."""
+    pairs = [(got, want)] if not hasattr(got, "state") else [
+        (got.state, want.state)]
+    err = 0.0
+    for g, w in pairs:
+        for f in ("black", "white", "legal"):
+            err = max(err, word_bits_err(tb, getattr(g, f), getattr(w, f)))
+        for f in ("turn", "terminated", "winner"):
+            err = max(err, float((getattr(g, f).to(torch.int32)
+                                  - getattr(w, f).to(torch.int32)
+                                  ).abs().max()))
+    if hasattr(got, "state"):
+        err = max(err, float((got.reward - want.reward).abs().max()),
+                  float((got.done != want.done).sum()))
+    return err
+
+
+def _bit_step_phase(torch, tb, ro, step, timing, dev, gen):
+    """The ply kernel in every mode with both flags each way, and
+    reset_where, against their plain versions on BIT_STEP_NS games; then
+    their times at BIT_STEP_TIME_NS.  Returns the kernels-line fields of
+    both."""
+    say(f"[bit_step] start: the ply kernel (plain, where, autoreset; both "
+        f"flags each way) and reset_where vs plain, exact, on "
+        f"{' and '.join(map(str, BIT_STEP_NS))} reachable states with "
+        "terminated games and legal, empty-illegal, occupied, -1, 64 and "
+        "100 actions")
+    err, big = 0.0, None
+    for n in BIT_STEP_NS:
+        state, action, do, done = _ply_inputs(torch, tb, ro, n, dev, gen)
+        if big is None:
+            big = (state, action, do, done)
+        checked = 0
+        for sudden in (True, False):
+            for disk in (False, True):
+                for mode, kw in (("plain", {}), ("where", {"do": do}),
+                                 ("autoreset", {"autoreset": True})):
+                    got = step.bit_step(state, action, sudden, disk, **kw)
+                    want = tb.bit_step_plain(state, action, sudden, disk,
+                                             **kw)
+                    e = _ply_err(torch, tb, got, want)
+                    require(e == 0, f"the ply kernel ({mode}, sudden "
+                            f"{sudden}, disk reward {disk}, N {n}) differs "
+                            f"from plain by {e}")
+                    err, checked = max(err, e), checked + 1
+                    if (sudden, disk, mode) == (False, False, "plain"):
+                        cover = _ply_coverage(torch, tb, state, action, want)
+        e = _ply_err(torch, tb, step.reset_where(state, done),
+                     tb.reset_where_plain(state, done))
+        require(e == 0, f"reset_where (N {n}) differs from plain by {e}")
+        say(f"[bit_step] N {n}: {checked} ply results and reset_where exact; "
+            f"without sudden death: {cover}")
+        if n == BIT_STEP_NS[0]:   # a stuck end is too rare to require
+            require(min(v for k, v in cover.items() if k != "ended_stuck")
+                    > 0, f"[bit_step] the inputs miss a case at N {n}: "
+                    f"{cover}")
+    state, action, do, done = big
+    reset_err = 0.0
+    rows = {"bit_step": {}, "reset_where": {}}
+    for n in BIT_STEP_TIME_NS:
+        st = tb.BitState(**{k: v[:n] for k, v in vars(state).items()})
+        a, d, dn = action[:n], do[:n], done[:n]
+
+        def run_ply():
+            return step.bit_step(st, a, True, True, do=d)
+
+        def reset():
+            return step.reset_where(st, dn)
+
+        want = tb.bit_step_plain(st, a, True, True, do=d)
+        e = _ply_err(torch, tb, run_ply(), want)
+        require(e == 0, f"the ply kernel (where, N {n}) differs from plain "
+                f"by {e}")
+        err = max(err, e)
+        e = _ply_err(torch, tb, reset(), tb.reset_where_plain(st, dn))
+        require(e == 0, f"reset_where (N {n}) differs from plain by {e}")
+        reset_err = max(reset_err, e)
+        is_white = st.turn == 1
+        mine = torch.where(is_white, want.state.white, want.state.black)
+        opp = torch.where(is_white, want.state.black, want.state.white)
+        second = d & (tb.legal_mask(opp, mine) == 0)
+        ops = (PLY_OPS_PER_GAME * int(d.sum())
+               + PLY_SECOND_FLOOD_OPS * int(second.sum()))
+        # Every game: state 27 B and do 1 B read, 32 B written.  Where the
+        # game steps, its 8 B action is read and its terminated and winner
+        # (2 B) are not.
+        nbytes = 60 * n + 6 * int(d.sum())
+        t = dict(ms=timing.device_ms(run_ply, 200),
+                 call_ms=timing.call_ms(run_ply, 200),
+                 plain_ms=timing.call_ms(
+                     lambda: tb.bit_step_plain(st, a, True, True, do=d), 10))
+        t["bound_ms"], t["bound_by"] = bound_ms(nbytes, ops)
+        r = dict(ms=timing.device_ms(reset, 200),
+                 call_ms=timing.call_ms(reset, 200),
+                 plain_ms=timing.call_ms(
+                     lambda: tb.reset_where_plain(st, dn), 10))
+        # Every game: done 1 B read, 27 B written; the state's 27 B read
+        # only where the game is not reset.
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            28 * n + 27 * int((~dn).sum()), 0)
+        suffix = "" if n == BIT_STEP_TIME_NS[-1] else f"_{n}"
+        rows["bit_step"].update({k + suffix: v for k, v in t.items()})
+        rows["reset_where"].update({k + suffix: v for k, v in r.items()})
+        say(f"[bit_step] N {n} (where mode, exact vs plain): kernel "
+            f"{t['ms']:.5f} ms on the "
+            f"device, {t['call_ms']:.5f} ms per wrapper call, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.7f} ms "
+            f"({t['bound_by']}); reset_where {r['ms']:.5f} ms, "
+            f"{r['call_ms']:.5f} ms per call, plain {r['plain_ms']:.3f} ms")
+    rows["bit_step"]["max_abs_err"] = err
+    rows["reset_where"]["max_abs_err"] = reset_err
+    say("[bit_step] ok")
+    return rows
+
+
+def _ply_coverage(torch, tb, state, action, res):
+    """How many games of a ply (without sudden death) took each path."""
+    valid = (state.legal & tb.action_bit(action)) != 0
+    full = tb.popcount(res.state.black | res.state.white) == 64
+    return dict(legal=int(valid.sum()),
+                ended_full=int((res.done & full & valid).sum()),
+                ended_stuck=int((res.done & ~full & valid).sum()),
+                passes=int((~res.done & (res.state.turn == state.turn)).sum()),
+                terminated_in=int(state.terminated.sum()))
+
+
+def _train_phase(torch, tb, legal_mask, step, timing, dev):
     """PPOSelfPlayTrainer at wide2 with the tuned recipe: TRAIN_UPDATES
-    updates and one evaluation, K2's launches counted from 0."""
+    updates and one evaluation, the counts of K2 and the ply kernel from
+    0."""
     from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
     from gymothelloenv_tpu_torch.core.state import EnvConfig
     from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
@@ -634,65 +900,90 @@ def _train_phase(torch, legal_mask, dev):
                              hidden_size=HIDDEN, width_mult=WIDTH_MULT,
                              num_test_games=TRAIN_TEST_GAMES,
                              test_interval=10 ** 9, seed=SEED)
+    env_cfg = EnvConfig(num_disk_as_reward=True)
     records = []
-    seen = [0]
+    seen = [0, 0]
 
-    def log_fn(step, metrics):
-        metrics = dict(metrics, k2_launches=legal_mask.launches - seen[0])
-        seen[0] = legal_mask.launches
+    def log_fn(update, metrics):
+        now = [step.bit_step.launches, step.reset_where.launches]
+        metrics = dict(metrics, step_launches=now[0] - seen[0],
+                       reset_launches=now[1] - seen[1])
+        seen[:] = now
         records.append(metrics)
-        say(f"[train] update {step}: collect {metrics['collect_seconds']:.3f}"
-            f" s, update {metrics['update_seconds']:.3f} s, "
+        say(f"[train] update {update}: collect "
+            f"{metrics['collect_seconds']:.3f} s, update "
+            f"{metrics['update_seconds']:.3f} s, "
             f"transitions_per_sec={metrics['transitions_per_sec']:.1f}, "
             f"value_loss={metrics['value_loss']:.5g} "
             f"action_loss={metrics['action_loss']:.5g} "
             f"entropy={metrics['entropy']:.5g}, episodes "
-            f"{int(metrics['episodes'])}, K2 launches "
-            f"{metrics['k2_launches']}, collector host syncs "
+            f"{int(metrics['episodes'])}, ply-kernel launches "
+            f"{metrics['step_launches']} bit_step + "
+            f"{metrics['reset_launches']} reset_where, collector host syncs "
             f"{metrics['collect_syncs']}")
 
     # F1: the trainer, not this script, switches TF32 off.  Both flags on
     # first (cuDNN's default; matmul's as a caller may leave it).
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
-    # Main path: K2's count starts at 0 here.
+    # Main path: the counts of K2 and the ply kernel start at 0 here.
     legal_mask.launches = 0
-    trainer = PPOSelfPlayTrainer(EnvConfig(num_disk_as_reward=True), ppo_cfg,
-                                 run_cfg, log_fn=log_fn, device=dev)
-    _fp32_check(torch, trainer.net, dev)
-    t0 = time.perf_counter()
-    trainer.train(TRAIN_UPDATES, log_every=1)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rates = trainer.evaluate()
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
-    k2_launches = legal_mask.launches
+    step.bit_step.launches = 0
+    step.reset_where.launches = 0
+    with _no_plain(tb) as plain_calls:
+        trainer = PPOSelfPlayTrainer(env_cfg, ppo_cfg, run_cfg,
+                                     log_fn=log_fn, device=dev)
+        _fp32_check(torch, trainer.net, dev)
+        t0 = time.perf_counter()
+        trainer.train(TRAIN_UPDATES, log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rates = trainer.evaluate()
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    out = dict(k2_launches=legal_mask.launches,
+               bit_step_launches=step.bit_step.launches,
+               reset_launches=step.reset_where.launches)
     require(len(records) == TRAIN_UPDATES, "the trainer skipped an update")
     for m in records:
         for key in ("value_loss", "action_loss", "entropy"):
             require(math.isfinite(m[key]), f"{key} is not finite: {m[key]}")
-        require(m["k2_launches"] > 0, "K2 was not launched in collection")
+        require(m["step_launches"] > 0 and m["reset_launches"] > 0,
+                "the ply kernel was not launched in collection")
     require(all(0.0 <= r <= 1.0 for r in rates.values()), "bad win rate")
-    require(k2_launches > 0, "kernel legal_mask was not launched on the "
-            "training path")
-    # K2 at the collector's shape: bit_step stacks both sides of N games.
+    for kname, count in out.items():
+        require(count > 0, f"{kname}: not launched on the training path")
+    require(not plain_calls, f"training ran the ply's plain version on the "
+            f"card: {plain_calls[:3]}")
+    # The ply kernel at the collector's state: every live game steps.
     b = trainer.sp_state.env
-    m = torch.cat([b.black, b.white])
-    o = torch.cat([b.white, b.black])
-    k2_ms = device_ms(torch, lambda: legal_mask(m, o), 200)
-    k2_call_ms = cuda_ms(torch, lambda: legal_mask(m, o), 200)
-    collect_s = [r["collect_seconds"] for r in records]
-    share = [r["k2_launches"] * k2_ms / 1e3 / c
-             for r, c in zip(records, collect_s)]
+    action = tb.random_legal_bit(b.legal, torch.zeros_like(b.legal))
+    live = ~b.terminated
+    flags = (env_cfg.sudden_death_on_invalid_move, env_cfg.num_disk_as_reward)
+    e = _ply_err(torch, tb, step.bit_step(b, action, *flags, do=live),
+                 tb.bit_step_plain(b, action, *flags, do=live))
+    e = max(e, _ply_err(torch, tb, step.reset_where(b, b.terminated),
+                        tb.reset_where_plain(b, b.terminated)))
+    require(e == 0, f"the ply kernel on the collector's state differs from "
+            f"plain by {e}")
+    out["ply_ms"] = timing.device_ms(lambda: step.bit_step(
+        b, action, *flags, do=live), 200)
+    out["reset_ms"] = timing.device_ms(
+        lambda: step.reset_where(b, b.terminated), 200)
+    share = [(r["step_launches"] * out["ply_ms"]
+              + r["reset_launches"] * out["reset_ms"]) / 1e3
+             / r["collect_seconds"] for r in records]
     say(f"[train] ok: {TRAIN_UPDATES} updates in {train_s:.2f} s; eval "
         f"win%(rand)={rates['rand']:.3f} win%(greedy)={rates['greedy']:.3f} "
-        f"in {eval_s:.2f} s; K2 {k2_launches} launches on the training path,"
-        f" {k2_ms:.5f} ms each on the device at 2 x {TRAIN_ENVS} boards "
-        f"({k2_call_ms:.5f} ms per wrapper call), K2 device share of "
+        f"in {eval_s:.2f} s; on the training path bit_step "
+        f"{out['bit_step_launches']}, reset_where {out['reset_launches']}, "
+        f"K2 {out['k2_launches']} launches; the ply kernel and reset_where "
+        f"exact vs plain on the collector's state, the ply kernel "
+        f"{out['ply_ms']:.5f} ms and reset_where {out['reset_ms']:.5f} ms on "
+        f"the device at {TRAIN_ENVS} games, ply-kernel device share of "
         f"collection {', '.join(f'{100 * x:.3f}%' for x in share)}")
-    return dict(k2_launches=k2_launches, k2_ms=k2_ms, k2_call_ms=k2_call_ms)
+    return out
 
 
 def _fp32_check(torch, net, dev):

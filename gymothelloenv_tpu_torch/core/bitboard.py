@@ -7,10 +7,11 @@ A side is a ``torch.int64`` tensor read as raw bits: bit ``k`` is cell
 that smears bit 63, so every right shift goes through :func:`lsr`.
 
 These are the plain PyTorch versions of the rules; they run on any device.
-The hand-written kernels (``ops/legal_mask.py``, ``ops/rollout.py``) use
-the same Kogge-Stone floods in ``csrc/bitboard.cuh``.  ``bit_step`` takes
-both legal masks of a ply from the K2 wrapper, so on a CUDA tensor every
-ply launches that kernel.
+The hand-written kernels (``ops/legal_mask.py``, ``ops/rollout.py``,
+``ops/step.py``) use the same Kogge-Stone floods in ``csrc/bitboard.cuh``.
+``bit_step`` goes through the ply kernel's wrapper (``ops/step.py``), so on
+a CUDA tensor every ply is one launch of that kernel, which floods both
+legal masks itself; ``bit_step_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -232,31 +233,43 @@ def select_state(cond: torch.Tensor, new: BitState, old: BitState) -> BitState:
                        for f in dataclasses.fields(BitState)})
 
 
+def opening(n: int, device) -> BitState:
+    """``n`` games at the opening, black to move, made without a kernel
+    (the legal mask is the constant ``INIT_LEGAL``)."""
+    def full(v, dtype):
+        return torch.full((n,), v, dtype=dtype, device=device)
+
+    return BitState(black=full(INIT_BLACK, torch.int64),
+                    white=full(INIT_WHITE, torch.int64),
+                    turn=full(-1, torch.int8),
+                    legal=full(INIT_LEGAL, torch.int64),
+                    terminated=full(False, torch.bool),
+                    winner=full(0, torch.int8))
+
+
 def bit_reset(n: int, device=None) -> BitState:
     """``n`` games at the opening, black to move.  The legal mask comes
-    from the K2 wrapper like every later one."""
+    from the K2 wrapper (one launch on a CUDA tensor)."""
     from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask as k2
 
-    device = resolve_device(device)
-    black = torch.full((n,), INIT_BLACK, dtype=torch.int64, device=device)
-    white = torch.full((n,), INIT_WHITE, dtype=torch.int64, device=device)
-    return BitState(
-        black=black, white=white,
-        turn=torch.full((n,), -1, dtype=torch.int8, device=device),
-        legal=k2(black, white),
-        terminated=torch.zeros((n,), dtype=torch.bool, device=device),
-        winner=torch.zeros((n,), dtype=torch.int8, device=device))
+    state = opening(n, resolve_device(device))
+    return dataclasses.replace(state, legal=k2(state.black, state.white))
 
 
-def bit_step(state: BitState, action: torch.Tensor,
-             sudden_death_on_invalid_move: bool = True,
-             num_disk_as_reward: bool = False) -> BitStepResult:
+def bit_step_plain(state: BitState, action: torch.Tensor,
+                   sudden_death_on_invalid_move: bool = True,
+                   num_disk_as_reward: bool = False,
+                   do: torch.Tensor | None = None,
+                   autoreset: bool = False) -> BitStepResult:
     """One ply for every game, bit-exact with ``bitboard.bit_step``
-    (othello.py:412-462).  Both legal masks of the new position come from
-    ONE launch of kernel K2 over the ``2N`` stacked boards."""
-    # Imported here: ops/legal_mask builds on this module's floods.
-    from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask as k2
+    (othello.py:412-462): the plain version of the ply kernel
+    (``ops/step.py``), pure PyTorch on any device.
 
+    With ``do``, games where ``~do`` keep their state and get reward 0 and
+    ``done`` False (``BitEngine.step_where``).  With ``autoreset``, games
+    the ply ends are at the opening in the returned state, while
+    ``reward``/``done`` describe the terminal transition
+    (``bitvec_step``)."""
     mover = state.turn
     is_white = mover == 1
     mine = torch.where(is_white, state.white, state.black)
@@ -276,7 +289,7 @@ def bit_step(state: BitState, action: torch.Tensor,
     done_now = sudden | board_full
 
     n = mine.shape[0]
-    both = k2(torch.cat([opp, mine]), torch.cat([mine, opp]))
+    both = legal_mask(torch.cat([opp, mine]), torch.cat([mine, opp]))
     legal_opp, legal_same = both[:n], both[n:]
     opp_has = legal_opp != 0
     same_has = legal_same != 0
@@ -295,12 +308,39 @@ def bit_step(state: BitState, action: torch.Tensor,
     reward = terminal_reward(terminated, sudden, mover, winner, mine_cnt,
                              opp_cnt, num_disk_as_reward)
 
-    return BitStepResult(
-        state=BitState(black=torch.where(is_white, opp, mine),
-                       white=torch.where(is_white, mine, opp),
-                       turn=next_turn, legal=next_legal,
-                       terminated=terminated, winner=winner),
-        reward=reward, done=terminated)
+    new = BitState(black=torch.where(is_white, opp, mine),
+                   white=torch.where(is_white, mine, opp),
+                   turn=next_turn, legal=next_legal,
+                   terminated=terminated, winner=winner)
+    if do is not None:
+        return BitStepResult(
+            state=select_state(do, new, state),
+            reward=torch.where(do, reward, torch.zeros_like(reward)),
+            done=do & terminated)
+    if autoreset:
+        new = select_state(terminated, opening(n, mine.device), new)
+    return BitStepResult(state=new, reward=reward, done=terminated)
+
+
+def reset_where_plain(state: BitState, done: torch.Tensor) -> BitState:
+    """Games where ``done`` at the opening, the rest unchanged: the plain
+    version of the ply kernel's ``reset_where``."""
+    return select_state(done, opening(done.shape[0], done.device), state)
+
+
+def bit_step(state: BitState, action: torch.Tensor,
+             sudden_death_on_invalid_move: bool = True,
+             num_disk_as_reward: bool = False) -> BitStepResult:
+    """One ply for every game (``bit_step_plain``'s semantics) through the
+    ply kernel's wrapper: one launch on a CUDA tensor, the plain version
+    on a CPU tensor.  ``action``: any integer type."""
+    # Imported here: ops/step builds on this module.
+    from gymothelloenv_tpu_torch.ops import step
+
+    return step.bit_step(
+        state, action.to(torch.int64),
+        sudden_death_on_invalid_move=sudden_death_on_invalid_move,
+        num_disk_as_reward=num_disk_as_reward)
 
 
 def step_cfg(state: BitState, action: torch.Tensor,

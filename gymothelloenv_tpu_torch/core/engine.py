@@ -9,6 +9,7 @@ import torch
 from gymothelloenv_tpu_torch.core import bitboard as bb
 from gymothelloenv_tpu_torch.core.featurize import make_state
 from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.ops import step
 
 _BIG = 1 << 20
 
@@ -19,14 +20,15 @@ class BitEngine:
 
     def reset_where(self, state: bb.BitState,
                     done: torch.Tensor) -> bb.BitState:
-        fresh = bb.bit_reset(done.shape[0], state.black.device)
-        return bb.select_state(done, fresh, state)
+        """Games where ``done`` back to the opening: one launch of the ply
+        kernel's ``reset_where`` on the card."""
+        return step.reset_where(state, done)
 
     def step_where(self, state: bb.BitState, actions: torch.Tensor,
                    do: torch.Tensor, cfg: EnvConfig) -> bb.BitState:
-        """Step every game, keeping the old state where ``~do``."""
-        return bb.select_state(do, bb.step_cfg(state, actions, cfg).state,
-                               state)
+        """Step every game, keeping the old state where ``~do``: one launch
+        of the ply kernel on the card."""
+        return step.step_where(state, actions.to(torch.int64), do, cfg)
 
     def featurize(self, state: bb.BitState) -> torch.Tensor:
         """(N, 4, 8, 8) float32 make_state planes."""

@@ -16,6 +16,7 @@ import torch
 
 from gymothelloenv_tpu_torch.core import bitboard as bb
 from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.ops import step
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
 
@@ -62,20 +63,23 @@ def bitvec_step(state: BitVecEnvState, actions: torch.Tensor,
     """Step every game; finished games auto-reset (``reward``/``done``
     describe the terminal transition, the returned state is the fresh
     game).  Games with ``rand_left > 0`` play a uniform random legal move
-    instead of their action."""
+    instead of their action.  The ply and the reset are one launch of the
+    ply kernel on the card (``ops.step.bit_step(..., autoreset=True)``)."""
     core = state.core
     n = actions.shape[0]
     device = core.black.device
+    actions = actions.to(torch.int64)
     rand_left = state.rand_left
     if initial_rand_steps != 0:
         use_rand = rand_left > 0
         rand_actions = bb.random_legal_bit(core.legal, rand_t, generator)
-        actions = torch.where(use_rand, rand_actions, actions.to(torch.int64))
+        actions = torch.where(use_rand, rand_actions, actions)
         rand_left = torch.where(use_rand, rand_left - 1, rand_left)
 
-    res = bb.step_cfg(core, actions, cfg)
-    next_core = bb.select_state(res.done, bb.bit_reset(n, device),
-                                res.state)
+    res = step.bit_step(
+        core, actions,
+        sudden_death_on_invalid_move=cfg.sudden_death_on_invalid_move,
+        num_disk_as_reward=cfg.num_disk_as_reward, autoreset=True)
     if initial_rand_steps != 0:
         if reset_rand_left is None:
             reset_rand_left = draw_rand_left(n, initial_rand_steps,
@@ -83,5 +87,5 @@ def bitvec_step(state: BitVecEnvState, actions: torch.Tensor,
         rand_left = torch.where(res.done, reset_rand_left.to(rand_left),
                                 rand_left)
     return BitVecStepResult(
-        state=BitVecEnvState(core=next_core, rand_left=rand_left),
+        state=BitVecEnvState(core=res.state, rand_left=rand_left),
         reward=res.reward, done=res.done)

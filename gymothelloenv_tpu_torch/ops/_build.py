@@ -46,6 +46,15 @@ _SIGNATURES = {
                             ctypes.c_longlong, ctypes.c_int, ctypes.c_uint,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int, _P),
+    # black, white, legal, turn, terminated, winner, action, do, words_out,
+    # small_out, reward_out, n, sudden, disk_reward, mode, device, stream
+    "otb_bit_step": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_int, _P),
+    # black, white, legal, turn, terminated, winner, done, words_out,
+    # small_out, n, device, stream
+    "otb_reset_where": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        ctypes.c_longlong, ctypes.c_int, _P),
 }
 
 

@@ -10,8 +10,10 @@ runs one warm-up update, then traces one collection and one
 each phase it prints the wall seconds, the summed device time of its
 kernels, the device's idle share (1 - device time / wall time, an upper
 bound on idleness where kernels overlap), the kernel launches, and the
-kernels with the most device time.  Float32 with TF32 off, as the
-trainer sets it.
+kernels with the most device time; for the collection also the kernels
+a slot (launches over ``num_steps``) and the launches of the ply kernel
+(``ops/step.py``: ``bit_step`` and ``reset_where``).  Float32 with TF32
+off, as the trainer sets it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from gymothelloenv_tpu_torch.agents.ppo import PPOConfig, ppo_update
 from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.ops import step
 from gymothelloenv_tpu_torch.ops.shuffle import draw_words
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig)
@@ -77,6 +80,7 @@ def main(argv=None):
         log_fn=lambda step, m: None, device=dev)
     trainer.train(1)                       # warm-up: cuDNN, allocator
     results = {}
+    ply0 = (step.bit_step.launches, step.reset_where.launches)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize(dev)
@@ -86,7 +90,13 @@ def main(argv=None):
             trainer.draws)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    results["collect"] = _report("collect", prof, wall)
+    collect = results["collect"] = _report("collect", prof, wall)
+    collect["ply_launches"] = (step.bit_step.launches - ply0[0],
+                               step.reset_where.launches - ply0[1])
+    print(f"[collect] {collect['launches'] / num_steps:.1f} kernels a slot "
+          f"({num_steps} slots); the ply kernel: "
+          f"{collect['ply_launches'][0]} bit_step and "
+          f"{collect['ply_launches'][1]} reset_where launches", flush=True)
     words = draw_words(trainer.shuffle_generator, ppo_cfg.ppo_epochs)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

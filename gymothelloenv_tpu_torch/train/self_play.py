@@ -17,8 +17,10 @@ slot:
 
 JAX's ``lax.while_loop`` in ``advance_opponent`` is a host loop here with
 one ``.any()`` read per iteration, bounded by ``MAX_ADVANCE_ITERS``.  The
-game batch stays in bitboard words (``core.bitboard.BitState``); every ply
-goes through ``bit_step``, so on the card every ply launches kernel K2.
+game batch stays in bitboard words (``core.bitboard.BitState``); on the
+card every ply (``BitEngine.step_where``) and the reset of finished games
+(``BitEngine.reset_where``) are one launch each of the ply kernel
+(``ops/step.py``).
 
 Randomness: one explicit ``torch.Generator`` (``Draws``) gives the colours
 and one inverse-CDF uniform per row per ply; ``InjectedDraws`` replays

@@ -3,8 +3,9 @@
 ``train/ppo_trainer.py::net_tournament_policy``, and of the two-colour
 protocol of ``cli/eval_checkpoint.py``.
 
-Games step in lockstep through ``bit_step`` (so on the card every ply
-launches kernel K2) until all have ended or ``max_plies`` plies ran.
+Games step in lockstep, one ``ops.step.step_where`` a ply (on the card
+one launch of the ply kernel, which also floods the legal masks), until
+all have ended or ``max_plies`` plies ran.
 Colours are fixed per call (black = first policy).  Random openings keep
 ``OthelloEnv``'s semantics (othello.py:151-199): each game draws
 ``2 * U{0..init_rand_steps//2}`` and its first that many plies, from
@@ -22,6 +23,7 @@ from gymothelloenv_tpu_torch.core.featurize import make_state
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.envs.bit_vector_env import draw_rand_left
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
+from gymothelloenv_tpu_torch.ops import step
 from gymothelloenv_tpu_torch.utils.device import (resolve_device,
                                                   use_float32)
 
@@ -47,9 +49,8 @@ def play_games(act_black: PolicyFn, act_white: PolicyFn, num_games: int,
         a_white = act_white(state, generator)
         action = torch.where(rand_left > 0, a_rand,
                              torch.where(state.turn == -1, a_black, a_white))
-        stepped = bb.step_cfg(state, action, cfg).state
         live = ~state.terminated
-        state = bb.select_state(live, stepped, state)
+        state = step.step_where(state, action, live, cfg)
         rand_left = torch.where(live, (rand_left - 1).clamp(min=0),
                                 rand_left)
         ply += 1

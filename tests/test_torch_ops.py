@@ -16,6 +16,7 @@ from gymothelloenv_tpu_torch.core import bitboard as tb
 from gymothelloenv_tpu_torch.ops import _build
 from gymothelloenv_tpu_torch.ops import rollout as ro
 from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask
+from gymothelloenv_tpu_torch.scripts import bench_legal_mask as blm
 from torch_port_helpers import pair, random_states, word
 
 
@@ -44,6 +45,21 @@ def test_k2_plain_matches_pallas_on_reachable_states(states):
     opp = jnp.stack(states.white, -1)
     want = np.asarray(legal_mask_pallas(mine, opp, interpret=True))
     got = legal_mask(word(states.black), word(states.white))
+    np.testing.assert_array_equal(tb.unpack_pair(got), want)
+
+
+def test_k2_bench_parity_step_matches_pallas_interpret():
+    """bench_legal_mask's boards are bench_pallas.py's, and its parity
+    step returns the Pallas kernel's masks (CPU: K2's plain version)."""
+    n = 300
+    cells = np.random.RandomState(0).randint(0, 3, (n, 8, 8))
+    mine = bb.pack(jnp.asarray(cells == 1))
+    opp = bb.pack(jnp.asarray(cells == 2))
+    got_mine, got_opp = blm.boards(n, 0, "cpu")
+    np.testing.assert_array_equal(tb.unpack_pair(got_mine), mine)
+    np.testing.assert_array_equal(tb.unpack_pair(got_opp), opp)
+    want = np.asarray(legal_mask_pallas(mine, opp, interpret=True))
+    got = blm.parity(got_mine, got_opp)
     np.testing.assert_array_equal(tb.unpack_pair(got), want)
 
 
@@ -201,7 +217,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_flags():
     names = [p.name for p in _build.sources()]
-    assert names == ["legal_mask.cu", "rollout.cu"]
+    assert names == ["legal_mask.cu", "rollout.cu", "step.cu"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert len(_build.source_hash()) == 64
