@@ -24,11 +24,24 @@ set to 0 just before it and read just after:
     200-game evaluation (the ply kernel on every ply and every reset of
     collection and evaluation; K2 once per bit_reset);
     then one ppo_update on the card against the same update on the CPU
-    from the same params, rollout and shuffle words, at a reduced size.
+    from the same params, rollout and shuffle words, at a reduced size;
+  * checkpoint IO: the trained trainer saved in the JAX trainer's format
+    (flax msgpack, written and read in pure Python) to a temporary
+    directory, read back byte for byte, and loaded into a fresh trainer on
+    the card bit for bit ([checkpoint]);
+  * maximin-k (policies/scripted.py), whose tree expands one level a
+    launch of the ply kernel: decisions at depth 1 and 2 on 4096 reachable
+    states and at depth 3 on 256, the same on card and CPU, chunked and
+    not ([maximin]);
+  * the evaluation CLIs: cli/eval_checkpoint.py on a wide2 checkpoint the
+    script writes from its seeded net, against maximin-2 and against
+    itself, and cli/tournament.py greedy against maximin-2
+    ([eval_checkpoint]).
 
 It reads no file outside gymothelloenv_tpu_torch/ (the nets are seeded
-inits) and exits non-zero on any failure, without a CUDA card, or when run
-outside a checkout of the repository.
+inits; the checkpoints it reads are the ones it wrote, in a temporary
+directory) and exits non-zero on any failure, without a CUDA card, or when
+run outside a checkout of the repository.
 
 K1 is held against its plain version at every lane count (1, 2, 4, 8) on
 injected words (also at a ragged N and at N = 1) and on Philox, and timed
@@ -55,8 +68,10 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -134,6 +149,13 @@ FP32_ATOL = 1e-4
 REF_ONE_STEP_ATOL = 1e-6
 REF_PARAM_RTOL = 0.05
 REF_METRIC_RTOL, REF_METRIC_ATOL = 1e-4, 1e-6
+MAXIMIN_N = 4096              # [maximin]: states at depths 1 and 2
+MAXIMIN_N3 = 256              # and at depth 3
+MAXIMIN_CHUNK = 300           # a forced chunk that splits the states
+MAXIMIN_TIME_N = 200          # decisions timed per depth
+MAXIMIN_REPS = 5
+EVALCK_GAMES = 200            # [eval_checkpoint] per opponent
+TOURNAMENT_GAMES = 100
 PLANTS = (("shuffle words", {}, SEED + 2),
           ("gae_lambda 0.9", {"gae_lambda": 0.9}, SEED + 1),
           ("clip_param 0.2", {"clip_param": 0.2}, SEED + 1),
@@ -367,8 +389,13 @@ def main():
     k3 = _variants_phase(torch, tb, ro, brv, dev, words)
 
     # 9. train (the ply kernel on every ply) and 10. train_reference ----------
-    train = _train_phase(torch, tb, legal_mask, step, timing, dev)
+    train, trainer = _train_phase(torch, tb, legal_mask, step, timing, dev)
     _train_reference_phase(torch, dev)
+
+    # 12. checkpoint, 13. maximin, 14. eval_checkpoint --------------------------
+    _checkpoint_phase(torch, trainer, dev)
+    mm = _maximin_phase(torch, tb, ro, step, dev, gen)
+    evalck = _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev)
 
     # 11. kernels line --------------------------------------------------------
     rows = [
@@ -376,10 +403,11 @@ def main():
              source="gymothelloenv_tpu_torch/csrc/legal_mask.cu",
              replaces="gymothelloenv_tpu/ops/pallas_bitboard.py:76",
              launches=(bench["launches"] + launches["legal_mask"]
-                       + train["k2_launches"]),
+                       + train["k2_launches"] + evalck["k2_launches"]),
              launches_by_path={"bench": bench["launches"],
                                "eval": launches["legal_mask"],
-                               "train": train["k2_launches"]},
+                               "train": train["k2_launches"],
+                               "eval_checkpoint": evalck["k2_launches"]},
              library_ms=None,
              equal=True, tolerance="exact", shape="2 x 512 boards",
              ms_1m=k2_big["ms"], plain_ms_1m=k2_big["plain_ms"],
@@ -394,12 +422,17 @@ def main():
              replaces="no Pallas kernel: gymothelloenv_tpu/core/bitboard.py"
                       ":254 bit_step (XLA-fused); carries K2's flood on the "
                       "main path",
-             launches=launches["bit_step"] + train["bit_step_launches"],
+             launches=(launches["bit_step"] + train["bit_step_launches"]
+                       + mm["launches"] + evalck["bit_step_launches"]),
              launches_by_path={"eval": launches["bit_step"],
-                               "train": train["bit_step_launches"]},
+                               "train": train["bit_step_launches"],
+                               "maximin": mm["launches"],
+                               "eval_checkpoint":
+                                   evalck["bit_step_launches"]},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games, where mode (the collector's)",
-             train_ms=train["ply_ms"], **ply["bit_step"]),
+             train_ms=train["ply_ms"], maximin=mm["timing"],
+             **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
              replaces="no Pallas kernel: gymothelloenv_tpu/core/engine.py"
@@ -983,6 +1016,212 @@ def _train_phase(torch, tb, legal_mask, step, timing, dev):
         f"{out['ply_ms']:.5f} ms and reset_where {out['reset_ms']:.5f} ms on "
         f"the device at {TRAIN_ENVS} games, ply-kernel device share of "
         f"collection {', '.join(f'{100 * x:.3f}%' for x in share)}")
+    return out, trainer
+
+
+def _checkpoint_phase(torch, trainer, dev):
+    """The trained trainer saved (the JAX trainer's msgpack layout) to a
+    temporary directory, read back, written again byte for byte, loaded
+    into a fresh trainer on the card bit for bit, and loaded params-only
+    (step 0, zero moments)."""
+    import dataclasses
+    from gymothelloenv_tpu_torch.train.ppo_trainer import PPOSelfPlayTrainer
+    from gymothelloenv_tpu_torch.utils import checkpoint as ck
+    say("[checkpoint] start: save the trainer, read the file back, load it "
+        "into a fresh trainer on the card, then params only")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trainer_{step}.msgpack").format(
+            step=trainer.update_count)
+        t0 = time.perf_counter()
+        trainer.save(path)
+        save_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            raw = f.read()
+        t0 = time.perf_counter()
+        tree = ck.unpackb(raw)
+        read_s = time.perf_counter() - t0
+        require(ck.packb(tree) == raw, "the writer's bytes of the read-back "
+                "payload differ from the file")
+        require(tree["step"] == trainer.update_count, "stored step differs")
+        fresh = PPOSelfPlayTrainer(trainer.env_cfg, trainer.ppo_cfg,
+                                   trainer.run_cfg, device=dev)
+        t0 = time.perf_counter()
+        fresh.load(path)
+        load_s = time.perf_counter() - t0
+        opt_a, opt_b = trainer.optimizer, fresh.optimizer
+        require(fresh.update_count == trainer.update_count,
+                "update_count differs after load")
+        for a, b in zip(trainer.net.parameters(), fresh.net.parameters()):
+            require(b.device == a.device and torch.equal(a, b),
+                    "params differ after load")
+            sa, sb = opt_a.adam.state[a], opt_b.adam.state[b]
+            for key in ("step", "exp_avg", "exp_avg_sq"):
+                require(torch.equal(sa[key], sb[key].to(sa[key].device)),
+                        f"Adam {key} differs after load")
+        lrs = ([g["lr"] for g in opt_a.adam.param_groups],
+               [g["lr"] for g in opt_b.adam.param_groups])
+        require(lrs[0] == lrs[1], f"lr differs after load: {lrs}")
+        require(opt_a.schedule.last_epoch == opt_b.schedule.last_epoch,
+                "schedule position differs after load")
+        # [train] ends its schedule at lr 0; under twice the schedule the
+        # loaded position gives exactly half the rate.
+        longer = PPOSelfPlayTrainer(
+            trainer.env_cfg, dataclasses.replace(
+                trainer.ppo_cfg,
+                num_updates=2 * trainer.ppo_cfg.num_updates),
+            trainer.run_cfg, device=dev)
+        longer.load(path)
+        half = longer.optimizer.adam.param_groups[0]["lr"]
+        require(half == trainer.ppo_cfg.lr * 0.5,
+                f"lr {half} under twice the schedule, want "
+                f"{trainer.ppo_cfg.lr * 0.5}")
+        fresh.load_params_only(path)
+        zero = fresh.optimizer.to_optax_state(lambda ts: ts)
+        require(fresh.update_count == 0
+                and int(zero["1"]["0"]["count"]) == 0
+                and not any(bool(t.any()) for t in zero["1"]["0"]["mu"]
+                            + zero["1"]["0"]["nu"]),
+                "load_params_only kept optimizer state")
+        require(all(torch.equal(a, b) for a, b in zip(
+            trainer.net.parameters(), fresh.net.parameters())),
+            "params differ after load_params_only")
+    say(f"[checkpoint] ok: {len(raw)} bytes at update "
+        f"{trainer.update_count}, saved in {save_s:.3f} s, read in "
+        f"{read_s:.3f} s, loaded in {load_s:.3f} s; written again byte for "
+        f"byte; params, Adam moments and steps, lr {lrs[1][0]:.6g} and "
+        f"update_count bit-equal on the card (lr {half:.6g} under twice the "
+        "schedule); params only: step 0, zero moments")
+
+
+def _maximin_phase(torch, tb, ro, step, dev, gen):
+    """maximin_action on K1 snapshots with a random mover (passes and
+    ended games among them): depth 1 and 2 on MAXIMIN_N states, depth 3 on
+    MAXIMIN_N3, each on card and CPU, chunked and not; maximin-1 against
+    greedy; argmax's tie rule on the card; then ms a decision for
+    MAXIMIN_TIME_N games at each depth.  Returns the main path's ply-kernel
+    launches and the timings."""
+    from gymothelloenv_tpu_torch.policies import scripted
+    say(f"[maximin] start: depths 1 and 2 on {MAXIMIN_N} reachable states, "
+        f"depth 3 on {MAXIMIN_N3}, card vs CPU, chunk {MAXIMIN_CHUNK} vs "
+        f"unchunked; then ms a decision for {MAXIMIN_TIME_N} games")
+    ties = torch.randint(0, 3, (MAXIMIN_N, 64), generator=gen, device=dev)
+    first = torch.from_numpy(ties.cpu().numpy().argmax(1))
+    require(torch.equal(torch.argmax(ties, 1).cpu(), first),
+            "argmax on the card does not take the first maximum")
+    state, _, _, _ = _ply_inputs(torch, tb, ro, MAXIMIN_N, dev, gen)
+    cpu = tb.BitState(**{k: v.cpu() for k, v in vars(state).items()})
+
+    def sub(s, n):
+        return tb.BitState(**{k: v[:n] for k, v in vars(s).items()})
+
+    cases = ((1, MAXIMIN_N), (2, MAXIMIN_N), (3, MAXIMIN_N3))
+    # Main path: the ply kernel's count starts at 0 here.
+    step.bit_step.launches = 0
+    card = {}
+    with _no_plain(tb) as plain_calls:
+        for depth, n in cases:
+            card[depth] = scripted.maximin_action(sub(state, n), depth)
+        chunked = scripted.maximin_action(sub(state, MAXIMIN_N), 2,
+                                          MAXIMIN_CHUNK)
+        whole = scripted.maximin_action(sub(state, MAXIMIN_N), 2, -1)
+        greedy = scripted.greedy_policy(state)
+    torch.cuda.synchronize()
+    launches = step.bit_step.launches
+    require(launches > 0, "the ply kernel was not launched on the maximin "
+            "path")
+    require(not plain_calls, f"maximin ran the ply's plain version on the "
+            f"card: {plain_calls[:3]}")
+    require(torch.equal(chunked, card[2]) and torch.equal(whole, card[2]),
+            "chunked maximin differs from unchunked")
+    require(torch.equal(card[1], greedy), "maximin-1 differs from greedy")
+    for depth, n in cases:
+        want = scripted.maximin_action(sub(cpu, n), depth)
+        require(torch.equal(card[depth].cpu(), want),
+                f"maximin-{depth} on the card differs from the CPU")
+    # Coverage: ended games, and states with a move after which the reply
+    # side has no move (the reference's pass quirk scores that child at
+    # once), counted with the plain ply on the CPU.
+    node, action = torch.nonzero(tb.unpack_flat(cpu.legal), as_tuple=True)
+    child = tb.bit_step_plain(
+        tb.BitState(**{k: v[node] for k, v in vars(cpu).items()}),
+        action).state
+    bounce = (child.turn == cpu.turn[node]) & ~child.terminated
+    cover = dict(terminated=int(cpu.terminated.sum()),
+                 quirk=len(set(node[bounce].tolist())),
+                 ending_move=len(set(node[child.terminated].tolist())))
+    require(min(cover.values()) > 0, f"[maximin] the states miss a case: "
+            f"{cover}")
+    timing = {}
+    for depth in (1, 2, 3):
+        s = sub(state, MAXIMIN_TIME_N)
+        ms, counts = [], []
+        for _ in range(MAXIMIN_REPS):
+            before = step.bit_step.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scripted.maximin_action(s, depth)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts.append(step.bit_step.launches - before)
+        timing[f"depth{depth}_ms"] = statistics.median(ms)
+        timing[f"depth{depth}_launches"] = counts[-1]
+    say(f"[maximin] ok: card = CPU at depths 1-3 ({cover}), chunked = "
+        f"unchunked, maximin-1 = greedy, argmax takes the first maximum; "
+        f"{launches} ply-kernel launches on the path, no plain ply; "
+        f"{MAXIMIN_TIME_N} games a decision: " + ", ".join(
+            f"depth {d} {timing[f'depth{d}_ms']:.2f} ms "
+            f"({timing[f'depth{d}_launches']} launches)" for d in (1, 2, 3)))
+    return dict(launches=launches, timing=timing)
+
+
+def _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev):
+    """cli.eval_checkpoint on a wide2 checkpoint written from ``net`` (the
+    seeded net of [eval]) against maximin-2 and against itself, then
+    cli.tournament greedy vs maximin-2, with the counts of K2 and the ply
+    kernel from 0."""
+    from gymothelloenv_tpu_torch.cli import eval_checkpoint, tournament
+    from gymothelloenv_tpu_torch.models.convert import flax_tree
+    from gymothelloenv_tpu_torch.utils.checkpoint import save_checkpoint
+    say(f"[eval_checkpoint] start: eval_checkpoint on a wide2 checkpoint of "
+        f"the seeded net vs maximin-2 and vs itself, {EVALCK_GAMES} games "
+        f"each; tournament greedy vs maximin-2, {TOURNAMENT_GAMES} games")
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wide2.msgpack")
+        save_checkpoint(path, 0, flax_tree(net))
+        # Main path: the counts of K2 and the ply kernel start at 0 here.
+        legal_mask.launches = 0
+        step.bit_step.launches = 0
+        with _no_plain(tb) as plain_calls:
+            for opp in ("maximin-2", f"ckpt:{path}"):
+                t0 = time.perf_counter()
+                w, d, l = eval_checkpoint.main([
+                    "--load", path, "--opponent", opp, "--games",
+                    str(EVALCK_GAMES), "--seed", str(SEED), "--device",
+                    DEVICE_TYPE])
+                seconds[opp.split(":")[0]] = time.perf_counter() - t0
+                require(w + d + l == EVALCK_GAMES,
+                        f"eval_checkpoint vs {opp} lost games")
+            t0 = time.perf_counter()
+            results = tournament.main([
+                "--black", "greedy", "--white", "maximin-2", "--games",
+                str(TOURNAMENT_GAMES), "--seed", str(SEED), "--device",
+                DEVICE_TYPE])
+            seconds["tournament"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    require(sum(results[("greedy", "maximin-2")]) == TOURNAMENT_GAMES,
+            "the tournament lost games")
+    out = dict(k2_launches=legal_mask.launches,
+               bit_step_launches=step.bit_step.launches)
+    for kname, count in out.items():
+        require(count > 0, f"{kname}: not launched on the eval_checkpoint "
+                "path")
+    require(not plain_calls, f"eval_checkpoint ran the ply's plain version "
+            f"on the card: {plain_calls[:3]}")
+    say(f"[eval_checkpoint] ok: every game accounted for; wall seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; K2 {out['k2_launches']}, ply kernel "
+        f"{out['bit_step_launches']} launches")
     return out
 
 

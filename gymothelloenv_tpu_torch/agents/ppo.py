@@ -12,12 +12,15 @@ adam(linear_schedule(lr -> 0), eps))``: the clip is written out
 (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, optax does
 not), Adam keeps eps outside the square root as optax does, and the
 learning rate is ``lr * (1 - step / total)`` with step 0 at the full rate.
+Its state maps onto optax's for the JAX trainer's checkpoints
+(``Optimizer.to_optax_state``/``load_optax_state``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
@@ -111,6 +114,82 @@ class Optimizer:
         self.adam.step()
         if self.schedule is not None:
             self.schedule.step()
+
+    def to_optax_state(self, to_tree) -> dict:
+        """The state of JAX's ``make_optimizer`` chain as flax stores it:
+        ``{"0": {} (clip), "1": {"0": {count, mu, nu} (adam), "1":
+        {count} (schedule) or {} (constant lr)}}``, counts int32 0-d
+        arrays.  ``to_tree`` maps one tensor per parameter, in
+        ``self.params`` order, to the flax tree
+        (``models.convert.flax_tree``); Adam's ``exp_avg``/``exp_avg_sq``
+        are optax's ``mu``/``nu`` and each parameter's ``step`` its
+        ``count``.  Before the first step both are zero."""
+        states = [self.adam.state.get(p, {}) for p in self.params]
+        counts = {int(s["step"]) if "step" in s else 0 for s in states}
+        if len(counts) != 1:
+            raise ValueError(f"Adam steps differ between parameters: "
+                             f"{sorted(counts)}")
+        mu = to_tree([s.get("exp_avg", torch.zeros_like(p))
+                      for p, s in zip(self.params, states)])
+        nu = to_tree([s.get("exp_avg_sq", torch.zeros_like(p))
+                      for p, s in zip(self.params, states)])
+        schedule = ({} if self.schedule is None else
+                    {"count": np.asarray(self.schedule.last_epoch, np.int32)})
+        return {"0": {}, "1": {
+            "0": {"count": np.asarray(counts.pop(), np.int32), "mu": mu,
+                  "nu": nu},
+            "1": schedule}}
+
+    def load_optax_state(self, state, from_tree) -> None:
+        """Set the optimizer from ``to_optax_state``'s layout (a JAX
+        trainer's ``opt_state``): Adam's moments from ``mu``/``nu`` through
+        ``from_tree`` (``models.convert.tensors_from_flax``), each
+        parameter's ``step`` from adam's count, and the schedule's
+        ``last_epoch`` from its count, with each group's ``lr`` recomputed
+        to ``lr * (1 - k / total)``.  Another layout raises
+        ``ValueError``: optax.flatten's flat vectors
+        (``flatten_optimizer``), a recurrent net's tree, or a schedule
+        state where this optimizer has a constant rate (or none where it
+        has one)."""
+        kind = "a linear schedule" if self.schedule else "a constant lr"
+
+        def bad(why):
+            return ValueError(f"optimizer state is not the layout of optax "
+                              f"clip_by_global_norm -> adam with {kind}: "
+                              f"{why}")
+
+        def keys(node, want, where):
+            if not isinstance(node, dict) or set(node) != set(want):
+                got = sorted(node) if isinstance(node, dict) else \
+                    type(node).__name__
+                raise bad(f"{where} holds {got}, expected {sorted(want)}")
+
+        keys(state, ("0", "1"), "the chain")
+        keys(state["0"], (), "clip_by_global_norm")
+        keys(state["1"], ("0", "1"), "adam")
+        adam = state["1"]["0"]
+        keys(adam, ("count", "mu", "nu"), "scale_by_adam")
+        keys(state["1"]["1"], ("count",) if self.schedule else (),
+             "the schedule")
+        try:
+            mu, nu = from_tree(adam["mu"]), from_tree(adam["nu"])
+        except ValueError as err:
+            raise bad(err) from err
+        step = torch.tensor(float(int(np.asarray(adam["count"]))),
+                            dtype=torch.float32)
+        for p, m, v in zip(self.params, mu, nu, strict=True):
+            self.adam.state[p] = {"step": step.clone(),
+                                  "exp_avg": m.to(p).contiguous(),
+                                  "exp_avg_sq": v.to(p).contiguous()}
+        if self.schedule is not None:
+            k = int(np.asarray(state["1"]["1"]["count"]))
+            self.schedule.last_epoch = k
+            for group, base, lam in zip(self.adam.param_groups,
+                                        self.schedule.base_lrs,
+                                        self.schedule.lr_lambdas):
+                group["lr"] = base * lam(k)
+            self.schedule._last_lr = [g["lr"] for g in
+                                      self.adam.param_groups]
 
 
 def make_optimizer(cfg: PPOConfig, params) -> Optimizer:

@@ -1,10 +1,12 @@
-"""Carry flax ``PolicyNet`` weights across to the port's ``PolicyNet``.
+"""Carry ``PolicyNet`` weights between flax's param tree and the port.
 
-The input is the flax param tree with numpy leaves (``ConvTrunk_0/
-Conv_{0,1,2}``, ``Dense_0`` fc, ``Dense_1`` value, ``Dense_2`` logits),
-with or without the outer ``{"params": ...}`` level.  Conv kernels go from
-HWIO to OIHW and Dense kernels are transposed; the trunk's NHWC flatten
-keeps the fc weights in JAX's row order.
+The flax tree has numpy leaves (``ConvTrunk_0/Conv_{0,1,2}``, ``Dense_0``
+fc, ``Dense_1`` value, ``Dense_2`` logits), with or without the outer
+``{"params": ...}`` level.  Conv kernels are HWIO in flax and OIHW here;
+Dense kernels are ``(in, out)`` in flax and ``(out, in)`` here; the
+trunk's NHWC flatten keeps the fc weights in JAX's row order.  The same
+mapping carries any per-parameter tensor, such as Adam's moments
+(``agents/ppo.Optimizer``).
 """
 
 from __future__ import annotations
@@ -15,13 +17,102 @@ import torch
 from gymothelloenv_tpu_torch.models.nets import PolicyNet
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
+_MODULES = {"trunk.conv0": ("ConvTrunk_0", "Conv_0"),
+            "trunk.conv1": ("ConvTrunk_0", "Conv_1"),
+            "trunk.conv2": ("ConvTrunk_0", "Conv_2"),
+            "fc": ("Dense_0",), "value": ("Dense_1",),
+            "logits": ("Dense_2",)}
+_LEAVES = {"weight": "kernel", "bias": "bias"}
 
-def _copy(dst: torch.Tensor, src, name: str) -> None:
-    src = torch.from_numpy(np.ascontiguousarray(src, dtype=np.float32))
-    if tuple(src.shape) != tuple(dst.shape):
-        raise ValueError(f"{name}: flax shape {tuple(src.shape)} does not "
-                         f"fit {tuple(dst.shape)}")
-    dst.copy_(src)
+
+def _flax_path(name: str) -> tuple:
+    """A ``PolicyNet`` parameter name -> its path in the flax tree."""
+    module, leaf = name.rsplit(".", 1)
+    return _MODULES[module] + (_LEAVES[leaf],)
+
+
+def _to_flax_layout(t: torch.Tensor) -> np.ndarray:
+    """OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``; float32 numpy."""
+    a = t.detach().to("cpu", torch.float32).numpy()
+    if a.ndim == 4:
+        a = np.transpose(a, (2, 3, 1, 0))
+    elif a.ndim == 2:
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
+def _from_flax_layout(a, like: torch.Tensor, name: str) -> torch.Tensor:
+    """The inverse of ``_to_flax_layout``, shaped and placed like ``like``;
+    a flax leaf of another shape raises."""
+    a = np.asarray(a)
+    stored = tuple(a.shape)
+    if a.ndim == 4:
+        a = np.transpose(a, (3, 2, 0, 1))
+    elif a.ndim == 2:
+        a = a.T
+    if tuple(a.shape) != tuple(like.shape):
+        raise ValueError(f"{name}: flax shape {stored} does not fit "
+                         f"{tuple(like.shape)}")
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(like.device)
+
+
+def flax_tree(net: PolicyNet, tensors=None) -> dict:
+    """``{"params": {...}}`` of ``tensors`` (default: the net's parameters;
+    one tensor per ``net.parameters()`` entry, in its order) in flax
+    layout."""
+    names = [name for name, _ in net.named_parameters()]
+    if tensors is None:
+        tensors = list(net.parameters())
+    tree: dict = {}
+    for name, t in zip(names, tensors, strict=True):
+        *outer, leaf = _flax_path(name)
+        node = tree
+        for key in outer:
+            node = node.setdefault(key, {})
+        node[leaf] = _to_flax_layout(t)
+    return {"params": tree}
+
+
+def tensors_from_flax(net: PolicyNet, tree) -> list:
+    """One tensor per ``net.parameters()`` entry from a flax tree, in the
+    port's layout on the net's device.  A missing or extra leaf, or one
+    of another shape, raises ``ValueError``."""
+    p = tree.get("params", tree) if isinstance(tree, dict) else tree
+    out, seen = [], set()
+    for name, param in net.named_parameters():
+        path = _flax_path(name)
+        node = p
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise ValueError(f"flax tree has no {'/'.join(path)}")
+            node = node[key]
+        out.append(_from_flax_layout(node, param, "/".join(path)))
+        seen.add(path)
+    extra = ["/".join(path) for path, _ in flax_leaves(p)
+             if path not in seen]
+    if extra:
+        raise ValueError(f"flax tree leaves the feed-forward PolicyNet does "
+                         f"not have: {extra[:3]}")
+    return out
+
+
+def flax_leaves(tree, path=()):
+    """``(path, leaf)`` of a nested dict in ``jax.tree_util``'s order
+    (sorted keys)."""
+    if not isinstance(tree, dict):
+        yield path, tree
+        return
+    for key in sorted(tree):
+        yield from flax_leaves(tree[key], path + (key,))
+
+
+def load_flax_params(net: PolicyNet, params) -> PolicyNet:
+    """Copy a flax param tree into ``net`` in place."""
+    tensors = tensors_from_flax(net, params)
+    with torch.no_grad():
+        for param, t in zip(net.parameters(), tensors):
+            param.copy_(t)
+    return net
 
 
 def policy_net_from_flax(params, width_mult: int, hidden_size: int,
@@ -29,20 +120,5 @@ def policy_net_from_flax(params, width_mult: int, hidden_size: int,
     """Build the port's ``PolicyNet`` from a flax ``PolicyNet`` param tree
     (feed-forward, ``conv`` trunk)."""
     device = resolve_device(device)
-    p = params.get("params", params)
     net = PolicyNet(hidden_size=hidden_size, width_mult=width_mult)
-    trunk = p["ConvTrunk_0"]
-    convs = (net.trunk.conv0, net.trunk.conv1, net.trunk.conv2)
-    denses = ((net.fc, "Dense_0"), (net.value, "Dense_1"),
-              (net.logits, "Dense_2"))
-    with torch.no_grad():
-        for i, conv in enumerate(convs):
-            leaf = trunk[f"Conv_{i}"]
-            _copy(conv.weight, np.transpose(leaf["kernel"], (3, 2, 0, 1)),
-                  f"Conv_{i}.kernel")
-            _copy(conv.bias, leaf["bias"], f"Conv_{i}.bias")
-        for layer, name in denses:
-            _copy(layer.weight, np.transpose(p[name]["kernel"]),
-                  f"{name}.kernel")
-            _copy(layer.bias, p[name]["bias"], f"{name}.bias")
-    return net.to(device).eval()
+    return load_flax_params(net.to(device), params).eval()

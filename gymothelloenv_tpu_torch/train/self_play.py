@@ -1,6 +1,7 @@
-"""PPO self-play collector — the port of ``train/self_play.py`` for mirror
-self-play (one net plays both colours) without random openings, the
-training default.
+"""PPO self-play collector — the port of ``train/self_play.py`` without
+random openings, the training default: mirror self-play (one net plays
+both colours), or a frozen ``opp_net`` on the non-learning colour (the
+opponent pool, JAX's ``opp_params``).
 
 Data semantics as the reference's pipe protocol (ppo_run_self_play.py:
 244-368): every game draws a random protagonist colour; both colours are
@@ -100,16 +101,13 @@ class InjectedDraws:
         return next(self._uniforms).to(device=device, dtype=torch.float32)
 
 
-def _unported(init_rand_steps: int, logp_mode: str, opp_net) -> None:
+def _unported(init_rand_steps: int, logp_mode: str) -> None:
     if init_rand_steps != 0:
         raise NotImplementedError("random openings in self-play collection "
                                   "(init_rand_steps > 0) are not ported yet")
     if logp_mode != "masked":
         raise NotImplementedError(f"logp_mode={logp_mode!r} is not ported "
                                   "yet (only 'masked')")
-    if opp_net is not None:
-        raise NotImplementedError("opponent nets (opponent pool) are not "
-                                  "ported yet: mirror self-play only")
 
 
 def policy_sample(net: torch.nn.Module, env: bb.BitState, draws):
@@ -172,13 +170,16 @@ def selfplay_init(net: torch.nn.Module, cfg: EnvConfig, num_envs: int,
                   logp_mode: str = "masked", opp_net=None,
                   device=None) -> SelfPlayState:
     """Fresh games and the first protagonist decision (the initial
-    pending transition), on ``device`` (default: the net's)."""
-    _unported(init_rand_steps, logp_mode, opp_net)
+    pending transition), on ``device`` (default: the net's).
+    ``opp_net`` plays the non-learning colour; ``None`` is mirror
+    self-play (JAX self_play.py:294-305)."""
+    _unported(init_rand_steps, logp_mode)
     if device is None:
         device = next(net.parameters()).device
     env = bb.bit_reset(num_envs, device)
     pcolor = draws.colors(num_envs, device)
-    env, syncs = advance_opponent(net, env, pcolor, cfg, draws)
+    opp_net = net if opp_net is None else opp_net
+    env, syncs = advance_opponent(opp_net, env, pcolor, cfg, draws)
     env, pending = protagonist_act(net, env, cfg, draws)
     return SelfPlayState(env=env, pcolor=pcolor, pending=pending,
                          host_syncs=syncs)
@@ -190,15 +191,17 @@ def collect_rollout(net: torch.nn.Module, sp: SelfPlayState, cfg: EnvConfig,
                     logp_mode: str = "masked", opp_net=None):
     """``num_steps`` slots; returns ``(new_state, Transition (T, N, ...),
     bootstrap_value (N,))``.  The bootstrap value is the behaviour value of
-    the state after the last emitted transition, the new pending's."""
-    _unported(init_rand_steps, logp_mode, opp_net)
+    the state after the last emitted transition, the new pending's.
+    ``opp_net`` plays the non-learning colour (``None``: ``net``)."""
+    _unported(init_rand_steps, logp_mode)
+    opp_net = net if opp_net is None else opp_net
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
     syncs = sp.host_syncs
     env, pcolor, pending = sp.env, sp.pcolor, sp.pending
     slots = []
     for _ in range(num_steps):
-        env, n_sync = advance_opponent(net, env, pcolor, cfg, draws)
+        env, n_sync = advance_opponent(opp_net, env, pcolor, cfg, draws)
         syncs += n_sync
         done = env.terminated
         outcome = _ENGINE.outcome_for(env, pcolor, cfg)
@@ -208,7 +211,7 @@ def collect_rollout(net: torch.nn.Module, sp: SelfPlayState, cfg: EnvConfig,
                                 reward=reward, done=done,
                                 legal=pending.legal))
         env, pcolor = reset_done(env, pcolor, done, draws)
-        env, n_sync = advance_opponent(net, env, pcolor, cfg, draws)
+        env, n_sync = advance_opponent(opp_net, env, pcolor, cfg, draws)
         syncs += n_sync
         env, pending = protagonist_act(net, env, cfg, draws)
     rollout = Transition(**{

@@ -1,0 +1,173 @@
+"""The port's ``eval_checkpoint`` and ``tournament`` CLIs on the CPU, and
+``load_eval_policy`` against JAX's.
+
+A tiny port-written checkpoint plays rand, greedy, maximin-1 and itself
+(``ckpt:``) with JAX's printed lines; the tournament prints its rows and
+table; ``load_eval_policy`` gives JAX's description and knobs for the
+committed wide2 checkpoint, and its net's forward agrees with JAX's
+``apply`` to 1e-5; recurrent, frame-stacked and ``.pth`` checkpoints and
+the lookahead flags are refused."""
+
+import contextlib
+import io
+import os
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gymothelloenv_tpu.core.state import EnvConfig as JaxEnvConfig
+from gymothelloenv_tpu.train import ppo_trainer as jtrainer
+from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+from gymothelloenv_tpu_torch.cli import eval_checkpoint, tournament
+from gymothelloenv_tpu_torch.scripts import ladder
+from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
+                                                       SelfPlayConfig,
+                                                       load_eval_policy)
+from gymothelloenv_tpu_torch.utils import checkpoint as ck
+from torch_port_helpers import one_torch_thread  # noqa: F401
+
+DATA = os.path.join(os.path.dirname(__file__), "..", "data", "selfplay")
+WIDE2 = os.path.join(DATA, "ppo_wide2_4k.msgpack")
+RECURRENT = os.path.join(DATA, "ppo_recurrent_2000.msgpack")
+RESULT = re.compile(
+    r"^checkpoint vs (\S+): (\d+) / (\d+) / (\d+) \(W/D/L over (\d+) games, "
+    r"half each color\)  win%=(\d\.\d{3})  \[\d+\.\ds\]$")
+
+
+@pytest.fixture(scope="module")
+def tiny_ckpt(tmp_path_factory):
+    trainer = PPOSelfPlayTrainer(
+        ppo_cfg=PPOConfig(num_updates=1),
+        run_cfg=SelfPlayConfig(num_envs=8, num_steps=4, hidden_size=32),
+        log_fn=lambda *a: None, device="cpu")
+    path = str(tmp_path_factory.mktemp("ckpt") / "tiny.msgpack")
+    trainer.save(path)
+    return path
+
+
+def _run(main, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    return result, out.getvalue().splitlines()
+
+
+@pytest.mark.parametrize("opponent", ["rand", "greedy", "maximin-1",
+                                      "ckpt"])
+def test_eval_checkpoint_lines(tiny_ckpt, opponent):
+    spec = f"ckpt:{tiny_ckpt}" if opponent == "ckpt" else opponent
+    (w, d, l), lines = _run(eval_checkpoint.main, [
+        "--device", "cpu", "--load", tiny_ckpt, "--opponent", spec,
+        "--games", "9", "--init-rand-steps", "4", "--seed", "1"])
+    assert lines[0] == (f"loaded {tiny_ckpt} (step 0, width_mult=1, "
+                        "hidden=32)")
+    if opponent == "ckpt":
+        assert lines[1] == (f"opponent checkpoint {tiny_ckpt} (step 0, "
+                            "width_mult=1, hidden=32)")
+    m = RESULT.match(lines[-1])
+    assert m, lines[-1]
+    assert m.group(1) == spec and m.group(5) == "8"
+    assert (int(m.group(2)), int(m.group(3)), int(m.group(4))) == (w, d, l)
+    assert w + d + l == 8
+    assert float(m.group(6)) == pytest.approx(w / 8, abs=5e-4)
+
+
+def test_eval_checkpoint_same_seed_same_games(tiny_ckpt):
+    argv = ["--device", "cpu", "--load", tiny_ckpt, "--opponent",
+            "maximin-1", "--games", "12", "--seed", "3"]
+    assert _run(eval_checkpoint.main, argv)[0] == \
+        _run(eval_checkpoint.main, argv + ["--expand-chunk", "2"])[0]
+
+
+@pytest.mark.parametrize("flag", ["--lookahead", "--lookahead-depth=2",
+                                  "--beam-k=8", "--opp-lookahead-depth=1",
+                                  "--board-size=6"])
+def test_eval_checkpoint_refuses_unported_flags(flag):
+    with pytest.raises(SystemExit) as err:
+        eval_checkpoint.build_parser().parse_args(["--load", "x.msgpack",
+                                                   flag])
+    assert err.value.code == 2
+
+
+def test_tournament_pairing_and_round_robin():
+    results, lines = _run(tournament.main, [
+        "--device", "cpu", "--black", "greedy", "--white", "maximin-1",
+        "--games", "6", "--init-rand-steps", "4"])
+    assert re.match(r"^    greedy \(B\) vs maximin-1  \(W\):  +\d+ / +\d+ / "
+                    r"+\d+   \[ *\d+\.\d\ds\]$", lines[0]), lines[0]
+    assert sum(results[("greedy", "maximin-1")]) == 6
+    results, lines = _run(tournament.main, [
+        "--device", "cpu", "--lineup", "rand,greedy,maximin-2", "--games",
+        "4", "--expand-chunk", "3"])
+    assert len(results) == 9 and all(sum(v) == 4 for v in results.values())
+    assert lines[9] == "" and lines[10].split() == ["rand", "greedy",
+                                                    "maximin-2"]
+    for line, black in zip(lines[11:], ("rand", "greedy", "maximin-2")):
+        cells = line.split()
+        assert cells[0] == black and len(cells) == 4
+    with pytest.raises(ValueError, match="unknown scripted policy"):
+        tournament.policy_from_spec("minimax-2")
+
+
+def test_load_eval_policy_matches_jax():
+    if not os.path.isfile(WIDE2):
+        pytest.skip(f"checkpoint not in this checkout: {WIDE2}")
+    net, desc = load_eval_policy(WIDE2, device="cpu")
+    params, apply_fn, jdesc = jtrainer.load_eval_policy(WIDE2,
+                                                        JaxEnvConfig())
+    assert desc == jdesc == "step 4000, width_mult=2, hidden=1024"
+    assert net.trunk.conv0.out_channels == 64 and net.fc.out_features == 1024
+    x = np.random.RandomState(0).rand(16, 4, 8, 8).astype(np.float32)
+    want_logits, want_value, _ = apply_fn(params, jnp.asarray(x))
+    with torch.no_grad():
+        logits, value = net(torch.from_numpy(x))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(value.numpy(), np.asarray(want_value),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_load_eval_policy_refusals(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 12"):
+        load_eval_policy(str(tmp_path / "ref.pth"), device="cpu")
+    if os.path.isfile(RECURRENT):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            load_eval_policy(RECURRENT, device="cpu")
+    stacked = {"params": {"ConvTrunk_0": {"Conv_0": {
+        "kernel": np.zeros((3, 3, 8, 32), np.float32)}}}}
+    path = str(tmp_path / "stacked.msgpack")
+    ck.save_checkpoint(path, 1, stacked)
+    with pytest.raises(NotImplementedError, match="frame_stack=2"):
+        load_eval_policy(path, device="cpu")
+    recurrent = {"params": {"ConvTrunk_0": {}, "GRUCore_0": {}}}
+    ck.save_checkpoint(path, 1, recurrent)
+    with pytest.raises(NotImplementedError, match="GRUCore_0"):
+        load_eval_policy(path, device="cpu")
+
+
+def test_port_checkpoint_loads_in_jax_eval_loader(tmp_path):
+    """A port checkpoint gets the same description from both loaders."""
+    trainer = PPOSelfPlayTrainer(
+        run_cfg=SelfPlayConfig(num_envs=8, num_steps=4, hidden_size=48,
+                               width_mult=2),
+        log_fn=lambda *a: None, device="cpu")
+    path = str(tmp_path / "wide.msgpack")
+    trainer.save(path)
+    _, _, jdesc = jtrainer.load_eval_policy(path, JaxEnvConfig())
+    _, desc = load_eval_policy(path, device="cpu")
+    assert desc == jdesc == "step 0, width_mult=2, hidden=48"
+
+
+def test_ladder_two_proportion_test():
+    """The pooled z-test of scripts/ladder.py on hand-worked cases: equal
+    rates give z 0 and p 1; 700/1000 against 291/400 gives z -1.0222 and
+    p 0.3067 (scipy.stats.norm.sf, two-sided)."""
+    assert ladder.two_proportion(291, 400, 291, 400) == (0.0, 1.0)
+    z, p = ladder.two_proportion(700, 1000, 291, 400)
+    assert z == pytest.approx(-1.0221819930820653, rel=1e-12)
+    assert p == pytest.approx(0.3066947717413323, rel=1e-9)
+    assert [c[1] for c in ladder.CELLS] == [
+        "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}"]

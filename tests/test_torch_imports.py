@@ -48,10 +48,14 @@ def test_forbidden_match_is_exact():
 
 
 def test_training_slice_modules_are_checked():
-    """The K3 path and the PPO training path are among the files above."""
+    """The K3 path, the PPO training path, checkpoint IO, maximin and the
+    evaluation CLIs are among the files above."""
     checked = {os.path.relpath(p, PORT) for p in _port_files()}
     for rel in ("agents/ppo.py", "ops/shuffle.py", "ops/rollout.py",
                 "train/self_play.py", "train/ppo_trainer.py",
                 "utils/logging.py", "cli/ppo_self_play.py",
-                "scripts/bench_rollout_variants.py"):
+                "scripts/bench_rollout_variants.py", "utils/checkpoint.py",
+                "models/convert.py", "policies/scripted.py",
+                "cli/tournament.py", "cli/eval_checkpoint.py",
+                "scripts/ladder.py"):
         assert rel in checked, rel

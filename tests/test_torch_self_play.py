@@ -64,23 +64,26 @@ def _params(kind, seed=0):
     return params
 
 
-def _jax_collect(params, rollouts, seed):
+def _jax_collect(params, rollouts, seed, opp_params=None):
     _, init, collect = _jax_fns()
-    state = init(params, key=jax.random.PRNGKey(seed))
+    state = init(params, key=jax.random.PRNGKey(seed),
+                 opp_params=opp_params)
     out = []
     for _ in range(rollouts):
-        state, roll, _ = collect(params, sp=state)
+        state, roll, _ = collect(params, sp=state, opp_params=opp_params)
         out.append({f: np.asarray(getattr(roll, f)) for f in FIELDS})
     joined = {f: np.concatenate([o[f] for o in out]) for f in FIELDS}
     return state, joined
 
 
-def _port_collect(net, rollouts, draws):
+def _port_collect(net, rollouts, draws, opp_net=None):
     cfg = EnvConfig(num_disk_as_reward=True)
-    state = sp.selfplay_init(net, cfg, N, draws, device="cpu")
+    state = sp.selfplay_init(net, cfg, N, draws, device="cpu",
+                             opp_net=opp_net)
     out = []
     for _ in range(rollouts):
-        state, roll, boot = sp.collect_rollout(net, state, cfg, T, draws)
+        state, roll, boot = sp.collect_rollout(net, state, cfg, T, draws,
+                                               opp_net=opp_net)
         assert torch.equal(boot, state.pending.value)
         out.append({f: getattr(roll, f).numpy() for f in FIELDS})
     joined = {f: np.concatenate([o[f] for o in out]) for f in FIELDS}
@@ -93,20 +96,28 @@ def _colour(obs):
     return torch.from_numpy(2 * obs[:, 2, 0, 0].astype(np.int8) - 1)
 
 
-@pytest.mark.parametrize("kind", ["ranked", "sharp"])
-def test_collector_matches_jax_exactly(kind):
-    """5 rollouts of T=8 at N=32 (40 slots: most games end and reset).
+@pytest.mark.parametrize("kind,opponent", [("ranked", None),
+                                           ("sharp", None),
+                                           ("sharp", "ranked"),
+                                           ("ranked", "sharp")])
+def test_collector_matches_jax_exactly(kind, opponent):
+    """5 rollouts of T=8 at N=32 (40 slots: most games end and reset),
+    mirror self-play or against a frozen opponent of another kind and
+    seed (JAX's ``opp_params``, the port's ``opp_net``).
     Tolerance: exact for obs/action/reward/done/legal; atol 1e-5 for
     logp/value (fp32 forward on both sides, summed in other orders)."""
     rollouts = 5
     params = _params(kind)
-    jstate, want = _jax_collect(params, rollouts, seed=3)
+    opp = None if opponent is None else _params(opponent, seed=1)
+    jstate, want = _jax_collect(params, rollouts, seed=3, opp_params=opp)
     colours = [_colour(o) for o in want["obs"]]
     colours.append(_colour(np.asarray(jstate.pending.obs)))
     draws = sp.InjectedDraws(colours,
                              itertools.repeat(torch.full((N,), 0.5)))
     net = policy_net_from_flax(params, 1, HIDDEN, device="cpu")
-    state, got = _port_collect(net, rollouts, draws)
+    opp_net = (None if opp is None else
+               policy_net_from_flax(opp, 1, HIDDEN, device="cpu"))
+    state, got = _port_collect(net, rollouts, draws, opp_net)
     assert want["done"].sum() >= N // 2          # resets were exercised
     for f in ("obs", "action", "reward", "done", "legal"):
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
@@ -172,8 +183,7 @@ def test_advance_opponent_is_bounded(monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(init_rand_steps=2),
-                                dict(logp_mode="full"),
-                                dict(opp_net=object())])
+                                dict(logp_mode="full")])
 def test_unported_collector_options_raise(kw):
     net = policy_net_from_flax(_params("sampling"), 1, HIDDEN, device="cpu")
     draws = sp.Draws(torch.Generator().manual_seed(0))

@@ -1,10 +1,14 @@
 """The port's PPO self-play trainer and its CLI on the CPU at a small size:
 two updates give finite metrics and move the params, evaluation gives win
-rates in [0, 1], the metrics logger writes JSONL, and every feature of the
-JAX trainer that is not ported yet raises (the trainer's config, the
-collector, and an argparse error for the CLI flag)."""
+rates in [0, 1], the metrics logger writes JSONL, the checkpoint, pool and
+chain flags work, and every feature of the JAX trainer that is not ported
+yet raises (the trainer's config, the collector, and an argparse error for
+the CLI flag)."""
 
+import contextlib
+import io
 import json
+import os
 
 import pytest
 import torch
@@ -50,9 +54,8 @@ def test_trainer_two_updates_on_cpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("init_rand_steps", 2), ("bf16", True), ("opponent_pool", 2),
-    ("pool_anchors", ("a.msgpack",)), ("recurrent", True),
-    ("frame_stack", 2), ("max_episode_plies", 30), ("chain_updates", 2),
+    ("init_rand_steps", 2), ("bf16", True), ("recurrent", True),
+    ("frame_stack", 2), ("max_episode_plies", 30),
     ("lookahead_collect", True),
 ])
 def test_trainer_rejects_unported_features(field, value):
@@ -86,14 +89,70 @@ def test_cli_runs_on_cpu_and_logs_jsonl(tmp_path):
     assert all("transitions_per_sec" in r for r in records)
 
 
-@pytest.mark.parametrize("flag", ["--bf16", "--checkpoint=x.msgpack",
-                                  "--load=x.msgpack", "--recurrent",
-                                  "--opponent-pool=3", "--chain-updates=2",
+@pytest.mark.parametrize("flag", ["--bf16", "--recurrent",
+                                  "--init-rand-steps=2", "--frame-stack=2",
+                                  "--max-episode-plies=30",
+                                  "--lookahead-collect", "--distill",
                                   "--board-size=6"])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit) as err:
         cli.build_parser().parse_args([flag])
     assert err.value.code == 2
+
+
+CLI_SMALL = ["--device", "cpu", "--num-envs", "16", "--num-steps", "8",
+             "--hidden-size", "32", "--num-test-games", "4",
+             "--log-every", "1"]
+
+
+def _cli(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer = cli.main(CLI_SMALL + argv)
+    return trainer, out.getvalue().splitlines()
+
+
+def test_cli_checkpoint_then_resume(tmp_path):
+    """``--checkpoint`` with ``{step}`` and ``--save-interval``, then
+    ``--load`` (JAX's "resumed from" line) and ``--load --reset-opt``
+    ("warm-started")."""
+    pattern = str(tmp_path / "ck_{step}.msgpack")
+    trainer, _ = _cli(["--num-updates", "3", "--save-interval", "2",
+                       "--checkpoint", pattern])
+    assert sorted(os.listdir(tmp_path)) == ["ck_2.msgpack", "ck_3.msgpack"]
+    last = pattern.format(step=3)
+    resumed, lines = _cli(["--num-updates", "1", "--load", last])
+    assert lines[1] == f"resumed from {last} at update 3"
+    assert resumed.update_count == 4
+    before = [p.detach().clone() for p in trainer.net.parameters()]
+    warm, lines = _cli(["--num-updates", "1", "--load", last,
+                        "--reset-opt"])
+    assert lines[1] == f"warm-started params from {last} (fresh optimizer)"
+    assert warm.update_count == 1
+    assert any(not torch.equal(a, b) for a, b in
+               zip(before, warm.net.parameters()))
+
+
+def test_cli_pool_and_chain_flags(tmp_path):
+    anchor = str(tmp_path / "anchor.msgpack")
+    _cli(["--num-updates", "1", "--checkpoint", anchor])
+    trainer, _ = _cli(["--num-updates", "3", "--opponent-pool", "2",
+                       "--pool-interval", "1", "--pool-anchor", anchor,
+                       "--pool-anchors", anchor])
+    assert len(trainer.anchors) == 2 and len(trainer.pool) == 2
+    assert trainer.run_cfg.pool_interval == 1
+    trainer, lines = _cli(["--num-updates", "3", "--chain-updates", "2"])
+    assert trainer.update_count == 4
+    assert [line.split()[1] for line in lines
+            if line.startswith("[update")] == ["2]", "4]"]
+
+
+@pytest.mark.parametrize("run", [dict(opponent_pool=2, pool_interval=0),
+                                 dict(pool_anchors=("a.msgpack",)),
+                                 dict(opponent_pool=2, chain_updates=2)])
+def test_trainer_rejects_bad_pool_settings(run):
+    with pytest.raises(ValueError):
+        PPOSelfPlayTrainer(run_cfg=SelfPlayConfig(**run), device="cpu")
 
 
 def test_metrics_logger_appends(tmp_path):
