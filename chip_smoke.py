@@ -33,10 +33,23 @@ set to 0 just before it and read just after:
     launch of the ply kernel: decisions at depth 1 and 2 on 4096 reachable
     states and at depth 3 on 256, the same on card and CPU, chunked and
     not ([maximin]);
+  * the value-lookahead search (train/ppo_trainer.py net_lookahead_policy)
+    on the wide2 net, whose every tree level is one launch of the ply
+    kernel: decisions at depth 1 on 4096 reachable states, at depth 2 on
+    256 and at beam-3 (k 8) on 64, the same on card and CPU wherever the
+    decision's margin exceeds 1e-4, chunked and not, one launch a level,
+    and ms a decision at 200 games with the device's share of it
+    ([lookahead]);
+  * search-bootstrapped training: PPOSelfPlayTrainer at wide2 on the
+    lookahead-mix recipe (N 512, T 64, 10 random opening plies, tau 1.0,
+    mix 0.25, 2 epochs, lr 5e-5 without decay) for 4 updates, updates 1-3
+    collecting plainly and update 4 with the override, then one distill
+    update at tau 2.0 ([lookahead_train]);
   * the evaluation CLIs: cli/eval_checkpoint.py on a wide2 checkpoint the
     script writes from its seeded net, against maximin-2 and against
-    itself, and cli/tournament.py greedy against maximin-2
-    ([eval_checkpoint]).
+    itself, raw and armed with the search (depth 2 against maximin-2,
+    beam-3 against greedy, depth 1 against itself at depth 1), and
+    cli/tournament.py greedy against maximin-2 ([eval_checkpoint]).
 
 It reads no file outside gymothelloenv_tpu_torch/ (the nets are seeded
 inits; the checkpoints it reads are the ones it wrote, in a temporary
@@ -64,6 +77,7 @@ turns them off and that its net then agrees with a CPU copy.
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -155,6 +169,25 @@ MAXIMIN_CHUNK = 300           # a forced chunk that splits the states
 MAXIMIN_TIME_N = 200          # decisions timed per depth
 MAXIMIN_REPS = 5
 EVALCK_GAMES = 200            # [eval_checkpoint] per opponent
+# [eval_checkpoint]'s armed runs: (opponent, flags), the opponent "self"
+# being the checkpoint itself.
+EVALCK_ARMED = (("maximin-2", ("--lookahead-depth", "2")),
+                ("greedy", ("--lookahead-depth", "3", "--beam-k", "8")),
+                ("self", ("--lookahead", "--opp-lookahead-depth", "1")))
+LOOKAHEAD_NS = {1: 4096, 2: 256, 3: 64}   # [lookahead] states per depth
+LOOKAHEAD_BEAM = 8
+LOOKAHEAD_CHUNK = 64          # a forced chunk that splits the depth-2 states
+LOOKAHEAD_TIME_N = 200        # games a timed decision
+LOOKAHEAD_REPS = 5
+# Card vs CPU: decisions are held where the CPU's margin (best value over
+# the second, and the beam's last kept depth-1 value over the first left
+# out) exceeds LOOKAHEAD_MARGIN; values, fp32 sums in other orders, to
+# LOOKAHEAD_ATOL.
+LOOKAHEAD_MARGIN, LOOKAHEAD_ATOL = 1e-4, 1e-4
+# [lookahead_train]: RESULTS.md's mix-0.25 recipe
+# (data/logs/queue/75_mix25_seed17.log) at its N and T, 4 updates.
+LA_ENVS, LA_STEPS, LA_RAND, LA_TAU, LA_MIX = 512, 64, 10, 1.0, 0.25
+LA_EPOCHS, LA_LR, LA_UPDATES, LA_DISTILL_TAU = 2, 5e-5, 4, 2.0
 TOURNAMENT_GAMES = 100
 PLANTS = (("shuffle words", {}, SEED + 2),
           ("gae_lambda 0.9", {"gae_lambda": 0.9}, SEED + 1),
@@ -392,9 +425,12 @@ def main():
     train, trainer = _train_phase(torch, tb, legal_mask, step, timing, dev)
     _train_reference_phase(torch, dev)
 
-    # 12. checkpoint, 13. maximin, 14. eval_checkpoint --------------------------
+    # 12. checkpoint, 13. maximin, 14. lookahead, 15. lookahead_train,
+    # 16. eval_checkpoint ---------------------------------------------------
     _checkpoint_phase(torch, trainer, dev)
     mm = _maximin_phase(torch, tb, ro, step, dev, gen)
+    la = _lookahead_phase(torch, tb, ro, step, net, dev, gen)
+    la_train = _lookahead_train_phase(torch, tb, legal_mask, step, dev)
     evalck = _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev)
 
     # 11. kernels line --------------------------------------------------------
@@ -403,10 +439,12 @@ def main():
              source="gymothelloenv_tpu_torch/csrc/legal_mask.cu",
              replaces="gymothelloenv_tpu/ops/pallas_bitboard.py:76",
              launches=(bench["launches"] + launches["legal_mask"]
-                       + train["k2_launches"] + evalck["k2_launches"]),
+                       + train["k2_launches"] + la_train["k2_launches"]
+                       + evalck["k2_launches"]),
              launches_by_path={"bench": bench["launches"],
                                "eval": launches["legal_mask"],
                                "train": train["k2_launches"],
+                               "lookahead_train": la_train["k2_launches"],
                                "eval_checkpoint": evalck["k2_launches"]},
              library_ms=None,
              equal=True, tolerance="exact", shape="2 x 512 boards",
@@ -423,22 +461,30 @@ def main():
                       ":254 bit_step (XLA-fused); carries K2's flood on the "
                       "main path",
              launches=(launches["bit_step"] + train["bit_step_launches"]
-                       + mm["launches"] + evalck["bit_step_launches"]),
+                       + mm["launches"] + la["launches"]
+                       + la_train["bit_step_launches"]
+                       + evalck["bit_step_launches"]),
              launches_by_path={"eval": launches["bit_step"],
                                "train": train["bit_step_launches"],
                                "maximin": mm["launches"],
+                               "lookahead": la["launches"],
+                               "lookahead_train":
+                                   la_train["bit_step_launches"],
                                "eval_checkpoint":
                                    evalck["bit_step_launches"]},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games, where mode (the collector's)",
              train_ms=train["ply_ms"], maximin=mm["timing"],
+             lookahead=la["timing"], lookahead_train=la_train["seconds"],
              **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
              replaces="no Pallas kernel: gymothelloenv_tpu/core/engine.py"
                       ":120 BitEngine.reset_where (XLA-fused)",
-             launches=train["reset_launches"],
-             launches_by_path={"train": train["reset_launches"]},
+             launches=train["reset_launches"] + la_train["reset_launches"],
+             launches_by_path={"train": train["reset_launches"],
+                               "lookahead_train":
+                                   la_train["reset_launches"]},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games (the collector's)",
              train_ms=train["reset_ms"], **ply["reset_where"]),
@@ -1024,7 +1070,6 @@ def _checkpoint_phase(torch, trainer, dev):
     temporary directory, read back, written again byte for byte, loaded
     into a fresh trainer on the card bit for bit, and loaded params-only
     (step 0, zero moments)."""
-    import dataclasses
     from gymothelloenv_tpu_torch.train.ppo_trainer import PPOSelfPlayTrainer
     from gymothelloenv_tpu_torch.utils import checkpoint as ck
     say("[checkpoint] start: save the trainer, read the file back, load it "
@@ -1174,17 +1219,260 @@ def _maximin_phase(torch, tb, ro, step, dev, gen):
     return dict(launches=launches, timing=timing)
 
 
+def _device_seconds(torch, fn):
+    """Summed device time (s) of the kernels ``fn`` runs, from
+    torch.profiler; None where the trace shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from gymothelloenv_tpu_torch.scripts.profile_train_step import device_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        events = [e for e in averages if device_us(e) > 0]
+    total = sum(device_us(e) for e in events) / 1e6
+    return total if total > 0 else None
+
+
+def _lookahead_phase(torch, tb, ro, step, net, dev, gen):
+    """net_lookahead_policy's search on the wide2 seeded net: card against
+    CPU at each depth (LOOKAHEAD_NS states, K1 snapshots with a random
+    mover), chunked against unchunked, one ply-kernel launch a tree level;
+    then ms a decision for LOOKAHEAD_TIME_N games at each depth and the
+    device's share of it.  Returns the main path's ply-kernel launches
+    and the timings."""
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train import ppo_trainer
+    from gymothelloenv_tpu_torch.train.self_play import NEG
+    say(f"[lookahead] start: wide2 seeded net, card vs CPU at depth 1 on "
+        f"{LOOKAHEAD_NS[1]} reachable states, depth 2 on {LOOKAHEAD_NS[2]} "
+        f"and beam-3 (k {LOOKAHEAD_BEAM}) on {LOOKAHEAD_NS[3]}; chunk "
+        f"{LOOKAHEAD_CHUNK} vs unchunked; then ms a decision for "
+        f"{LOOKAHEAD_TIME_N} games")
+    cfg = EnvConfig(num_disk_as_reward=True)
+    state, _, _, _ = _ply_inputs(torch, tb, ro, LOOKAHEAD_NS[1], dev, gen)
+    cpu_state = tb.BitState(**{k: v.cpu() for k, v in vars(state).items()})
+    cpu_net = copy.deepcopy(net).cpu()
+
+    def sub(s, n):
+        return tb.BitState(**{k: v[:n] for k, v in vars(s).items()})
+
+    def search(n, s, depth, chunk=0):
+        return ppo_trainer.lookahead_search(n, s, cfg, depth,
+                                            LOOKAHEAD_BEAM, chunk)
+
+    # Main path: the ply kernel's count starts at 0 here.
+    step.bit_step.launches = 0
+    card = {}
+    with _no_plain(tb) as plain_calls:
+        for depth, n in LOOKAHEAD_NS.items():
+            card[depth] = search(net, sub(state, n), depth)
+        chunked = search(net, sub(state, LOOKAHEAD_NS[2]), 2,
+                         LOOKAHEAD_CHUNK)
+    torch.cuda.synchronize()
+    launches = step.bit_step.launches
+    require(launches > 0, "the ply kernel was not launched on the "
+            "lookahead path")
+    require(not plain_calls, f"the lookahead ran the ply's plain version "
+            f"on the card: {plain_calls[:3]}")
+
+    def compare(got, want, what):
+        """(decisions held, exact decisions, largest value error)."""
+        a, scores, _ = (t.cpu() for t in got)
+        a_w, scores_w, margin = want
+        clear = margin > LOOKAHEAD_MARGIN
+        require(torch.equal(a[clear], a_w[clear]),
+                f"{what}: {int((a[clear] != a_w[clear]).sum())} decisions "
+                f"differ where the margin exceeds {LOOKAHEAD_MARGIN}")
+        rows = clear[:, None] & (scores_w > NEG)
+        require(torch.equal(scores[clear] > NEG, scores_w[clear] > NEG),
+                f"{what}: other actions searched")
+        err = float((scores - scores_w)[rows].abs().max()) if bool(
+            rows.any()) else 0.0
+        require(err <= LOOKAHEAD_ATOL, f"{what}: values differ by "
+                f"{err:.2e} > {LOOKAHEAD_ATOL}")
+        return int(clear.sum()), int((a == a_w).sum()), err
+
+    report = {}
+    for depth, n in LOOKAHEAD_NS.items():
+        want = search(cpu_net, sub(cpu_state, n), depth)
+        held, exact, err = compare(card[depth], want, f"depth {depth}")
+        require(held >= 0.9 * n, f"depth {depth}: only {held} of {n} "
+                f"decisions clear the margin")
+        report[depth] = (n, held, exact, err)
+    held, exact, err = compare(chunked, tuple(t.cpu() for t in card[2]),
+                               f"chunk {LOOKAHEAD_CHUNK}")
+    report["chunk"] = (LOOKAHEAD_NS[2], held, exact, err)
+    timing = {}
+    s = sub(state, LOOKAHEAD_TIME_N)
+    for depth in LOOKAHEAD_NS:
+        act = ppo_trainer.net_lookahead_policy(net, cfg, depth,
+                                               LOOKAHEAD_BEAM)
+        ms, counts = [], []
+        for _ in range(LOOKAHEAD_REPS):
+            before = step.bit_step.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            act(s)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            counts.append(step.bit_step.launches - before)
+        require(set(counts) == {depth}, f"depth {depth}: {counts} ply-"
+                "kernel launches a decision, expected one a level")
+        device_s = _device_seconds(torch, lambda: act(s))
+        timing[f"depth{depth}_ms"] = statistics.median(ms)
+        timing[f"depth{depth}_launches"] = counts[-1]
+        timing[f"depth{depth}_device_ms"] = (None if device_s is None
+                                             else 1e3 * device_s)
+        timing[f"depth{depth}_host_share"] = (
+            None if device_s is None
+            else 1.0 - 1e3 * device_s / timing[f"depth{depth}_ms"])
+    say("[lookahead] card vs CPU (states, held by the margin, exactly equal, "
+        "largest value error): " + "; ".join(
+            f"{k if k == 'chunk' else f'depth {k}'} {v[0]}/{v[1]}/{v[2]}/"
+            f"{v[3]:.2e}" for k, v in report.items()))
+    say(f"[lookahead] ok: {launches} ply-kernel launches on the path, no "
+        f"plain ply; {LOOKAHEAD_TIME_N} games a decision: " + ", ".join(
+            f"depth {d} {timing[f'depth{d}_ms']:.2f} ms "
+            f"({timing[f'depth{d}_launches']} launches, device "
+            + ("not measured" if timing[f"depth{d}_device_ms"] is None else
+               f"{timing[f'depth{d}_device_ms']:.3f} ms, host share "
+               f"{100 * timing[f'depth{d}_host_share']:.1f}%") + ")"
+            for d in LOOKAHEAD_NS))
+    return dict(launches=launches, timing=timing, report=report)
+
+
+def _lookahead_train_phase(torch, tb, legal_mask, step, dev):
+    """PPOSelfPlayTrainer at wide2 on the lookahead-mix recipe: LA_UPDATES
+    updates (updates 1-3 plain, 4 with the override), then one distill
+    update at LA_DISTILL_TAU with every collection overridden; the counts
+    of K2 and the ply kernel from 0.  Then the collector's lookahead
+    values on its own state, card against CPU."""
+    from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
+                                                           SelfPlayConfig)
+    from gymothelloenv_tpu_torch.train.self_play import (
+        collect_rollout, lookahead_action_values, selfplay_init)
+    say(f"[lookahead_train] start: PPOSelfPlayTrainer wide2, N={LA_ENVS}, "
+        f"T={LA_STEPS}, init_rand_steps {LA_RAND}, lookahead_collect tau "
+        f"{LA_TAU} mix {LA_MIX}, ppo_epochs {LA_EPOCHS}, lr {LA_LR} without "
+        f"decay, {LA_UPDATES} updates; then 1 distill update at tau "
+        f"{LA_DISTILL_TAU}")
+    env_cfg = EnvConfig(num_disk_as_reward=True)
+    ppo_cfg = PPOConfig(lr=LA_LR, ppo_epochs=LA_EPOCHS,
+                        use_linear_lr_decay=False)
+    run_cfg = SelfPlayConfig(num_envs=LA_ENVS, num_steps=LA_STEPS,
+                             hidden_size=HIDDEN, width_mult=WIDTH_MULT,
+                             init_rand_steps=LA_RAND, lookahead_collect=True,
+                             lookahead_tau=LA_TAU, lookahead_mix=LA_MIX,
+                             test_interval=10 ** 9, seed=SEED)
+    records = []
+
+    def log_fn(update, metrics):
+        records.append(metrics)
+        say(f"[lookahead_train] update {update}: "
+            f"{'lookahead' if metrics['lookahead'] else 'plain'} "
+            f"collection {metrics['collect_seconds']:.3f} s, update "
+            f"{metrics['update_seconds']:.3f} s, value_loss="
+            f"{metrics['value_loss']:.5g} action_loss="
+            f"{metrics['action_loss']:.5g}, episodes "
+            f"{int(metrics['episodes'])}, collector host syncs "
+            f"{metrics['collect_syncs']}")
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    # Main path: the counts of K2 and the ply kernel start at 0 here.
+    legal_mask.launches = 0
+    step.bit_step.launches = 0
+    step.reset_where.launches = 0
+    with _no_plain(tb) as plain_calls:
+        trainer = PPOSelfPlayTrainer(env_cfg, ppo_cfg, run_cfg,
+                                     log_fn=log_fn, device=dev)
+        _fp32_check(torch, trainer.net, dev)
+        trainer.train(LA_UPDATES, log_every=1)
+        distill = PPOSelfPlayTrainer(
+            env_cfg, dataclasses.replace(ppo_cfg, distill=True),
+            dataclasses.replace(run_cfg, lookahead_tau=LA_DISTILL_TAU,
+                                lookahead_mix=1.0),
+            log_fn=log_fn, device=dev)
+        distill.train(1, log_every=1)
+        torch.cuda.synchronize()
+    out = dict(k2_launches=legal_mask.launches,
+               bit_step_launches=step.bit_step.launches,
+               reset_launches=step.reset_where.launches)
+    require(len(records) == LA_UPDATES + 1, "the trainer skipped an update")
+    modes = [m["lookahead"] for m in records]
+    require(modes == [0.0, 0.0, 0.0, 1.0, 1.0],
+            f"collection modes {modes}, expected plain x3 then lookahead")
+    for m in records:
+        for key in ("value_loss", "action_loss", "entropy"):
+            require(math.isfinite(m[key]), f"{key} is not finite: {m[key]}")
+    for kname, count in out.items():
+        require(count > 0, f"{kname}: not launched on the lookahead "
+                "training path")
+    require(not plain_calls, f"lookahead training ran the ply's plain "
+            f"version on the card: {plain_calls[:3]}")
+    # The random openings' share of a plain collection: the trained net,
+    # fresh games, with and without them.
+    openings = {}
+    for rand in (0, LA_RAND):
+        sp_state = selfplay_init(trainer.net, env_cfg, LA_ENVS,
+                                 trainer.draws, rand)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        collect_rollout(trainer.net, sp_state, env_cfg, LA_STEPS,
+                        trainer.draws, rand)
+        torch.cuda.synchronize()
+        openings[rand] = time.perf_counter() - t0
+    env = trainer.sp_state.env
+    cpu_env = tb.BitState(**{k: v.cpu() for k, v in vars(env).items()})
+    got = lookahead_action_values(trainer.net, env, env_cfg).cpu()
+    want = lookahead_action_values(copy.deepcopy(trainer.net).cpu(),
+                                   cpu_env, env_cfg)
+    legal = tb.unpack_flat(cpu_env.legal)
+    err = float((got - want)[legal].abs().max())
+    require(err <= LOOKAHEAD_ATOL, f"collector lookahead values card vs "
+            f"CPU differ by {err:.2e} > {LOOKAHEAD_ATOL}")
+    require(torch.equal(got[~legal], want[~legal]), "illegal actions' "
+            "values differ")
+    out["seconds"] = {
+        "plain_collect": [m["collect_seconds"] for m in records[:3]],
+        "lookahead_collect": records[3]["collect_seconds"],
+        "distill_collect": records[4]["collect_seconds"],
+        "update": [m["update_seconds"] for m in records],
+        "plain_collect_without_openings": openings[0],
+        "plain_collect_with_openings": openings[LA_RAND]}
+    say(f"[lookahead_train] ok: collect plain "
+        + ", ".join(f"{x:.3f}" for x in out["seconds"]["plain_collect"])
+        + f" s, with the override {records[3]['collect_seconds']:.3f} s "
+        f"(tau {LA_TAU}) and {records[4]['collect_seconds']:.3f} s (tau "
+        f"{LA_DISTILL_TAU}, distill); fresh games, plain: "
+        f"{openings[0]:.3f} s without random openings, "
+        f"{openings[LA_RAND]:.3f} s with {LA_RAND}; "
+        f"bit_step {out['bit_step_launches']}, "
+        f"reset_where {out['reset_launches']}, K2 {out['k2_launches']} "
+        f"launches, no plain ply, TF32 off; collector lookahead values on "
+        f"its own {LA_ENVS} games: card = CPU to {err:.2e}")
+    return out
+
+
 def _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev):
     """cli.eval_checkpoint on a wide2 checkpoint written from ``net`` (the
-    seeded net of [eval]) against maximin-2 and against itself, then
-    cli.tournament greedy vs maximin-2, with the counts of K2 and the ply
-    kernel from 0."""
+    seeded net of [eval]) against maximin-2 and against itself, then armed
+    with the search (EVALCK_ARMED), then cli.tournament greedy vs
+    maximin-2, with the counts of K2 and the ply kernel from 0."""
     from gymothelloenv_tpu_torch.cli import eval_checkpoint, tournament
     from gymothelloenv_tpu_torch.models.convert import flax_tree
     from gymothelloenv_tpu_torch.utils.checkpoint import save_checkpoint
     say(f"[eval_checkpoint] start: eval_checkpoint on a wide2 checkpoint of "
-        f"the seeded net vs maximin-2 and vs itself, {EVALCK_GAMES} games "
-        f"each; tournament greedy vs maximin-2, {TOURNAMENT_GAMES} games")
+        f"the seeded net vs maximin-2 and vs itself, then "
+        + ", ".join(f"{' '.join(f)} vs {o}" for o, f in EVALCK_ARMED)
+        + f", {EVALCK_GAMES} games each; tournament greedy vs maximin-2, "
+        f"{TOURNAMENT_GAMES} games")
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "wide2.msgpack")
@@ -1192,16 +1480,23 @@ def _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev):
         # Main path: the counts of K2 and the ply kernel start at 0 here.
         legal_mask.launches = 0
         step.bit_step.launches = 0
+        runs = [("maximin-2", ()), ("self", ())] + list(EVALCK_ARMED)
+        launches = {}
         with _no_plain(tb) as plain_calls:
-            for opp in ("maximin-2", f"ckpt:{path}"):
+            for opp, flags in runs:
+                spec = f"ckpt:{path}" if opp == "self" else opp
+                label = " ".join((opp,) + flags)
+                before = (legal_mask.launches, step.bit_step.launches)
                 t0 = time.perf_counter()
                 w, d, l = eval_checkpoint.main([
-                    "--load", path, "--opponent", opp, "--games",
+                    "--load", path, "--opponent", spec, *flags, "--games",
                     str(EVALCK_GAMES), "--seed", str(SEED), "--device",
                     DEVICE_TYPE])
-                seconds[opp.split(":")[0]] = time.perf_counter() - t0
+                seconds[label] = time.perf_counter() - t0
+                launches[label] = (legal_mask.launches - before[0],
+                                   step.bit_step.launches - before[1])
                 require(w + d + l == EVALCK_GAMES,
-                        f"eval_checkpoint vs {opp} lost games")
+                        f"eval_checkpoint vs {label} lost games")
             t0 = time.perf_counter()
             results = tournament.main([
                 "--black", "greedy", "--white", "maximin-2", "--games",
@@ -1219,9 +1514,12 @@ def _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev):
     require(not plain_calls, f"eval_checkpoint ran the ply's plain version "
             f"on the card: {plain_calls[:3]}")
     say(f"[eval_checkpoint] ok: every game accounted for; wall seconds "
-        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        "(K2, ply-kernel launches): "
+        + ", ".join(f"{k} {v:.2f} {launches.get(k, '')}"
+                    for k, v in seconds.items())
         + f"; K2 {out['k2_launches']}, ply kernel "
         f"{out['bit_step_launches']} launches")
+    out["seconds"], out["by_run"] = seconds, launches
     return out
 
 
@@ -1266,7 +1564,6 @@ def _train_reference_phase(torch, dev):
     as a single optimizer step, once with the trainer's epochs and
     minibatches.  The latter is also run on the card with a planted fault
     (PLANTS) to show that its tolerance sees such a fault."""
-    import dataclasses
     from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, Transition,
                                                     make_optimizer,
                                                     ppo_update)

@@ -50,13 +50,13 @@ class PPOConfig:
     # "hash": keyed bijection per minibatch when T*N is a power of two,
     # else (and for "sort") a uniform permutation per epoch.
     shuffle: str = "hash"
-    # Not ported yet (ROADMAP.md): the search-distillation loss.
+    # Distillation (search-bootstrapped training): the clipped surrogate
+    # becomes the cross-entropy to the taken action, -mean(logp), with the
+    # value loss unchanged.  With the collector's lookahead override this
+    # regresses the raw policy onto the searched actions.
     distill: bool = False
 
     def __post_init__(self):
-        if self.distill:
-            raise NotImplementedError(
-                "PPOConfig.distill is not ported yet (ROADMAP.md queue 1)")
         if self.shuffle not in ("hash", "sort"):
             raise ValueError(f"shuffle must be 'hash' or 'sort', got "
                              f"{self.shuffle!r}")
@@ -217,6 +217,31 @@ def compute_gae(rollout: Transition, bootstrap_value: torch.Tensor,
     return adv, adv + rollout.value
 
 
+@torch.no_grad()
+def compute_gae_masked(rollout: Transition, weights: torch.Tensor,
+                       bootstrap_value: torch.Tensor, cfg: PPOConfig):
+    """GAE over streams with invalid (weight-0) slots, which are
+    transparent: the recursion state and the successor value pass through
+    them unchanged.  Returns ``(advantages, returns)``, (T, N), meaningful
+    only where ``weights > 0``."""
+    valid = weights > 0
+    not_done = 1.0 - rollout.done.to(torch.float32)
+    adv = torch.empty_like(rollout.value)
+    gae = torch.zeros_like(bootstrap_value)
+    v_next = bootstrap_value
+    for t in range(adv.shape[0] - 1, -1, -1):
+        v = rollout.value[t]
+        delta = rollout.reward[t] + cfg.gamma * v_next * not_done[t] - v
+        # One rounding for the recursion, as XLA's fused multiply-add
+        # (see compute_gae).
+        new_gae = torch.addcmul(delta, cfg.gamma * cfg.gae_lambda
+                                * not_done[t], gae)
+        adv[t] = new_gae
+        gae = torch.where(valid[t], new_gae, gae)
+        v_next = torch.where(valid[t], v, v_next)
+    return adv, adv + rollout.value
+
+
 def ppo_loss(net: torch.nn.Module, batch: Transition,
              advantages: torch.Tensor, returns: torch.Tensor,
              cfg: PPOConfig):
@@ -232,11 +257,16 @@ def ppo_loss_terms(logits: torch.Tensor, values: torch.Tensor,
     """The loss given the network's outputs on the minibatch."""
     dist = MaskedCategorical(logits=logits, mask=batch.legal)
     logp = dist.log_prob(batch.action)
-    ratio = torch.exp(logp - batch.logp)
-    surr1 = ratio * advantages
-    surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param,
-                        1.0 + cfg.clip_param) * advantages
-    action_loss = -torch.minimum(surr1, surr2).mean()
+    if cfg.distill:
+        # Cross-entropy to the taken (search-improved) action; the
+        # advantages are unused.
+        action_loss = -logp.mean()
+    else:
+        ratio = torch.exp(logp - batch.logp)
+        surr1 = ratio * advantages
+        surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param,
+                            1.0 + cfg.clip_param) * advantages
+        action_loss = -torch.minimum(surr1, surr2).mean()
 
     if cfg.use_clipped_value_loss:
         value_clipped = batch.value + torch.clamp(

@@ -1,6 +1,7 @@
 """PPO self-play training CLI — the port of ``cli/ppo_self_play.py`` for
 the flags of the feed-forward self-play path (mirror or opponent pool,
-checkpoints, chained updates), plus ``--device``.  A flag of the JAX CLI
+checkpoints, chained updates, random openings, lookahead collection and
+distillation), plus ``--device``.  A flag of the JAX CLI
 that is not ported yet is an argparse error.  The net computes in float32
 with TF32 off (``utils.device.use_float32``), and the first printed line
 says so.  Checkpoints are the JAX CLI's files (flax msgpack), so
@@ -10,6 +11,10 @@ Usage:
     python -m gymothelloenv_tpu_torch.cli.ppo_self_play --num-updates 1000 \
         --num-envs 1024 --lr 2.5e-4 --entropy-coef 0.01 \
         --checkpoint data/selfplay/ppo_{step}.msgpack
+    python -m gymothelloenv_tpu_torch.cli.ppo_self_play --num-updates 1000 \
+        --num-envs 512 --width-mult 2 --hidden-size 1024 \
+        --lookahead-collect --lookahead-tau 1.0 --lookahead-mix 0.25 \
+        --init-rand-steps 10 --ppo-epochs 2 --lr 5e-5 --no-linear-lr-decay
     python -m gymothelloenv_tpu_torch.cli.ppo_self_play --device cpu \
         --num-envs 16 --num-steps 8 --num-updates 2 --hidden-size 32
 """
@@ -45,6 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ppo-epochs", type=int, default=4)
     parser.add_argument("--num-mini-batch", type=int, default=4)
     parser.add_argument("--no-linear-lr-decay", action="store_true")
+    parser.add_argument("--init-rand-steps", type=int, default=0,
+                        help="random opening plies of each training game "
+                             "(2 x U{0..K//2})")
     parser.add_argument("--test-init-rand-steps", type=int, default=10)
     parser.add_argument("--num-test-games", type=int, default=200)
     parser.add_argument("--test-interval", type=int, default=100)
@@ -80,6 +88,25 @@ def build_parser() -> argparse.ArgumentParser:
                         help="updates per training iteration: eval/save "
                              "cadence quantizes to K and the run length "
                              "rounds UP to a multiple of K")
+    parser.add_argument("--lookahead-collect", action="store_true",
+                        help="search-bootstrapped training: the "
+                             "protagonist ACTS with the 1-ply value "
+                             "lookahead while the update trains the raw "
+                             "net (pair with --distill for approximate "
+                             "policy iteration)")
+    parser.add_argument("--lookahead-mix", type=float, default=1.0,
+                        help="fraction of updates whose collection uses "
+                             "the lookahead override (deterministic "
+                             "interleave; 0.5 alternates plain and "
+                             "search-guided collection)")
+    parser.add_argument("--lookahead-tau", type=float, default=0.0,
+                        help="softmax temperature over child values for "
+                             "--lookahead-collect (0 = argmax; value "
+                             "scale is disk diffs, +-64)")
+    parser.add_argument("--distill", action="store_true",
+                        help="cross-entropy-to-taken-action update "
+                             "instead of the clipped surrogate (for "
+                             "--lookahead-collect distillation)")
     return parser
 
 
@@ -92,9 +119,10 @@ def main(argv=None):
         gae_lambda=args.gae_lambda, ppo_epochs=args.ppo_epochs,
         num_mini_batch=args.num_mini_batch,
         use_linear_lr_decay=not args.no_linear_lr_decay,
-        num_updates=args.num_updates)
+        num_updates=args.num_updates, distill=args.distill)
     run_cfg = SelfPlayConfig(
         num_envs=args.num_envs, num_steps=args.num_steps,
+        init_rand_steps=args.init_rand_steps,
         test_init_rand_steps=args.test_init_rand_steps,
         num_test_games=args.num_test_games,
         test_interval=args.test_interval,
@@ -102,7 +130,10 @@ def main(argv=None):
         hidden_size=args.hidden_size, width_mult=args.width_mult,
         opponent_pool=args.opponent_pool, pool_interval=args.pool_interval,
         pool_anchors=tuple(args.pool_anchor),
-        chain_updates=args.chain_updates)
+        chain_updates=args.chain_updates,
+        lookahead_collect=args.lookahead_collect,
+        lookahead_tau=args.lookahead_tau,
+        lookahead_mix=args.lookahead_mix)
     precision = use_float32()
     logger = MetricsLogger(args.log_dir) if args.log_dir else None
     try:

@@ -226,6 +226,12 @@ class BitStepResult:
     done: torch.Tensor        # bool
 
 
+def index_state(state: BitState, idx) -> BitState:
+    """The games ``idx`` (an index tensor or a slice) of ``state``."""
+    return BitState(**{f.name: getattr(state, f.name)[idx]
+                       for f in dataclasses.fields(BitState)})
+
+
 def select_state(cond: torch.Tensor, new: BitState, old: BitState) -> BitState:
     """Field-wise ``where(cond, new, old)``."""
     return BitState(**{f.name: torch.where(cond, getattr(new, f.name),

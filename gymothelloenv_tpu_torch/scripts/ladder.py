@@ -1,18 +1,18 @@
-"""RESULTS.md's maximin-2 ladder through the port: three
-``cli/eval_checkpoint.py`` runs on the committed checkpoints, each held
-against the JAX package's figure with a two-proportion z-test on win%
-(a draw is a non-win, as JAX counts it).
+"""RESULTS.md's ladder through the port: ``cli/eval_checkpoint.py`` runs
+on the committed checkpoints, raw and armed with the value-lookahead
+search, each held against the JAX package's figure with a two-proportion
+z-test on win% (a draw is a non-win, as JAX counts it).
 
     python -m gymothelloenv_tpu_torch.scripts.ladder [--games 1000]
         [--seed 0] [--device cuda]
 
 Each cell is the same as ``python -m gymothelloenv_tpu_torch.cli.
-eval_checkpoint --load <ckpt> --opponent <opp> --games <games> --seed
-<seed>``, whose lines it prints.  Then one JSON line per cell: W/D/L,
+eval_checkpoint --load <ckpt> --opponent <opp> [<flags>] --games <games>
+--seed <seed>``, whose lines it prints.  Then one JSON line per cell: W/D/L,
 seconds, the JAX figure, z and the two-sided p-value, and whether p is at
 or above ``ALPHA``.  Seeded JAX and torch streams never agree, so the check
 is statistical.  On a card it first prints the card's name and power limit
-(nvidia-smi).  Reads the two checkpoints under ``data/selfplay/``.
+(nvidia-smi).  Reads four checkpoints under ``data/selfplay/``.
 """
 
 from __future__ import annotations
@@ -29,10 +29,21 @@ from gymothelloenv_tpu_torch.cli import eval_checkpoint
 
 WIDE2_4K = "data/selfplay/ppo_wide2_4k.msgpack"
 LAMIX = "data/selfplay/ppo_wide2_lamix25s17_1000.msgpack"
-# (checkpoint, opponent, JAX wins, JAX games, where RESULTS.md says so)
-CELLS = ((WIDE2_4K, "maximin-2", 291, 400, "RESULTS.md:235"),
-         (LAMIX, "maximin-2", 304, 400, "RESULTS.md:1119"),
-         (LAMIX, f"ckpt:{WIDE2_4K}", 178, 400, "RESULTS.md:1119"))
+LA3500 = "data/selfplay/ppo_wide2_la_3500.msgpack"
+# (checkpoint, opponent, eval_checkpoint flags, JAX wins, JAX games, where
+# RESULTS.md says so)
+CELLS = ((WIDE2_4K, "maximin-2", (), 291, 400, "RESULTS.md:235"),
+         (LAMIX, "maximin-2", (), 304, 400, "RESULTS.md:1119"),
+         (LAMIX, f"ckpt:{WIDE2_4K}", (), 178, 400, "RESULTS.md:1119"),
+         (LA3500, "maximin-2", ("--lookahead",), 963, 1000,
+          "RESULTS.md:696"),
+         (LA3500, "maximin-2", ("--lookahead-depth", "2"), 991, 1000,
+          "RESULTS.md:697"),
+         (LA3500, "maximin-2", ("--lookahead-depth", "3", "--beam-k", "8"),
+          993, 1000, "RESULTS.md:1016"),
+         (LA3500, f"ckpt:{WIDE2_4K}",
+          ("--lookahead", "--opp-lookahead-depth", "1"), 891, 1000,
+          "RESULTS.md:794-796"))
 ALPHA = 0.01
 
 
@@ -59,15 +70,17 @@ def main(argv=None) -> list:
         print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}",
               flush=True)
     rows = []
-    for ckpt, opp, jax_wins, jax_games, where in CELLS:
+    for ckpt, opp, flags, jax_wins, jax_games, where in CELLS:
         t0 = time.time()
         wins, draws, losses = eval_checkpoint.main([
-            "--load", ckpt, "--opponent", opp, "--games", str(args.games),
-            "--seed", str(args.seed), "--device", args.device])
+            "--load", ckpt, "--opponent", opp, *flags, "--games",
+            str(args.games), "--seed", str(args.seed), "--device",
+            args.device])
         seconds = time.time() - t0
         games = wins + draws + losses
         z, p = two_proportion(wins, games, jax_wins, jax_games)
-        rows.append(dict(load=ckpt, opponent=opp, wins=wins, draws=draws,
+        rows.append(dict(load=ckpt, opponent=opp, flags=" ".join(flags),
+                         wins=wins, draws=draws,
                          losses=losses, win_rate=wins / games,
                          seconds=seconds, jax_wins=jax_wins,
                          jax_games=jax_games,

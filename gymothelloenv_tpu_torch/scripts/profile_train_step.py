@@ -34,7 +34,8 @@ from gymothelloenv_tpu_torch.train.self_play import collect_rollout
 from gymothelloenv_tpu_torch.utils.device import use_float32
 
 
-def _device_us(event) -> float:
+def device_us(event) -> float:
+    """A profiler event's own device time in us (0 without one)."""
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
             return float(getattr(event, name))
@@ -48,15 +49,15 @@ def _report(name: str, prof, wall_s: float, top: int = 8) -> dict:
     if not events:
         # Kernels folded into the operators that launched them: an
         # operator's self device time is its own kernels' time.
-        events = [e for e in averages if _device_us(e) > 0]
-    device_s = sum(_device_us(e) for e in events) / 1e6
+        events = [e for e in averages if device_us(e) > 0]
+    device_s = sum(device_us(e) for e in events) / 1e6
     launches = sum(e.count for e in events)
     idle = 1.0 - device_s / wall_s if wall_s > 0 else float("nan")
     print(f"[{name}] wall {wall_s:.4f} s, device {device_s:.4f} s in "
           f"{launches} kernels, device idle share {100 * idle:.1f}%",
           flush=True)
-    for e in sorted(events, key=_device_us, reverse=True)[:top]:
-        print(f"[{name}]   {_device_us(e) / 1e3:9.3f} ms  x{e.count:6d}  "
+    for e in sorted(events, key=device_us, reverse=True)[:top]:
+        print(f"[{name}]   {device_us(e) / 1e3:9.3f} ms  x{e.count:6d}  "
               f"{e.key[:90]}", flush=True)
     return dict(wall_s=wall_s, device_s=device_s, launches=launches,
                 idle_share=idle)

@@ -6,7 +6,7 @@ A tiny port-written checkpoint plays rand, greedy, maximin-1 and itself
 table; ``load_eval_policy`` gives JAX's description and knobs for the
 committed wide2 checkpoint, and its net's forward agrees with JAX's
 ``apply`` to 1e-5; recurrent, frame-stacked and ``.pth`` checkpoints and
-the lookahead flags are refused."""
+other board sizes are refused."""
 
 import contextlib
 import io
@@ -82,9 +82,7 @@ def test_eval_checkpoint_same_seed_same_games(tiny_ckpt):
         _run(eval_checkpoint.main, argv + ["--expand-chunk", "2"])[0]
 
 
-@pytest.mark.parametrize("flag", ["--lookahead", "--lookahead-depth=2",
-                                  "--beam-k=8", "--opp-lookahead-depth=1",
-                                  "--board-size=6"])
+@pytest.mark.parametrize("flag", ["--board-size=6"])
 def test_eval_checkpoint_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as err:
         eval_checkpoint.build_parser().parse_args(["--load", "x.msgpack",
@@ -170,4 +168,7 @@ def test_ladder_two_proportion_test():
     assert z == pytest.approx(-1.0221819930820653, rel=1e-12)
     assert p == pytest.approx(0.3066947717413323, rel=1e-9)
     assert [c[1] for c in ladder.CELLS] == [
+        "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}", "maximin-2",
         "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}"]
+    assert [c[3:5] for c in ladder.CELLS[3:]] == [
+        (963, 1000), (991, 1000), (993, 1000), (891, 1000)]

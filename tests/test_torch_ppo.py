@@ -212,7 +212,7 @@ def test_ppo_update_sort_shuffle_and_bad_words():
         ppo.ppo_update(net, opt, rollout, boot, draw_words(g, 3), cfg)
 
 
-@pytest.mark.parametrize("field", ["distill", "shuffle"])
+@pytest.mark.parametrize("field", ["shuffle"])
 def test_ppo_config_rejects_unported(field):
-    with pytest.raises((NotImplementedError, ValueError)):
-        ppo.PPOConfig(**{field: True if field == "distill" else "radix"})
+    with pytest.raises(ValueError):
+        ppo.PPOConfig(**{field: "radix"})

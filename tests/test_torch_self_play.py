@@ -177,15 +177,8 @@ def test_advance_opponent_is_bounded(monkeypatch):
     net = policy_net_from_flax(_params("sampling"), 1, HIDDEN, device="cpu")
     draws = sp.Draws(torch.Generator().manual_seed(0))
     state = sp.selfplay_init(net, cfg, 4, draws, device="cpu")
-    monkeypatch.setattr(sp, "masked_step", lambda env, a, do, c: env)
+    monkeypatch.setattr(sp, "masked_step",
+                        lambda env, rand_left, *args: (env, rand_left))
     with pytest.raises(RuntimeError, match="opponent still to move"):
-        sp.advance_opponent(net, state.env, -state.env.turn, cfg, draws)
-
-
-@pytest.mark.parametrize("kw", [dict(init_rand_steps=2),
-                                dict(logp_mode="full")])
-def test_unported_collector_options_raise(kw):
-    net = policy_net_from_flax(_params("sampling"), 1, HIDDEN, device="cpu")
-    draws = sp.Draws(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        sp.selfplay_init(net, EnvConfig(), 4, draws, device="cpu", **kw)
+        sp.advance_opponent(net, state.env, state.rand_left,
+                            -state.env.turn, cfg, draws)

@@ -54,9 +54,8 @@ def test_trainer_two_updates_on_cpu():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("init_rand_steps", 2), ("bf16", True), ("recurrent", True),
+    ("bf16", True), ("recurrent", True),
     ("frame_stack", 2), ("max_episode_plies", 30),
-    ("lookahead_collect", True),
 ])
 def test_trainer_rejects_unported_features(field, value):
     with pytest.raises(NotImplementedError, match=field):
@@ -90,9 +89,8 @@ def test_cli_runs_on_cpu_and_logs_jsonl(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--bf16", "--recurrent",
-                                  "--init-rand-steps=2", "--frame-stack=2",
+                                  "--frame-stack=2",
                                   "--max-episode-plies=30",
-                                  "--lookahead-collect", "--distill",
                                   "--board-size=6"])
 def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit) as err:

@@ -1,6 +1,8 @@
 """Shared helpers for the PyTorch port's parity tests (tests/test_torch_*.py):
-random reachable positions made with the JAX engine from a numpy seed, and
-conversion of JAX word pairs to the port's 64-bit words."""
+random reachable positions made with the JAX engine from a numpy seed,
+conversion of JAX word pairs to the port's 64-bit words and of JAX
+bitboard states to the plane states of JAX's search, and the exact stub
+value net of JAX's search tests."""
 
 import functools
 
@@ -11,6 +13,7 @@ import pytest
 import torch
 
 from gymothelloenv_tpu.core import bitboard as bb
+from gymothelloenv_tpu.core.state import OthelloState
 from gymothelloenv_tpu_torch.core import bitboard as tb
 
 
@@ -42,6 +45,31 @@ def assert_same_state(port: tb.BitState, ref: bb.BitState, msg=""):
         np.testing.assert_array_equal(getattr(port, name).numpy(),
                                       np.asarray(getattr(ref, name)),
                                       err_msg=f"{name} {msg}")
+
+
+def othello_state(s: bb.BitState) -> OthelloState:
+    """A JAX bitboard state as the plane ``OthelloState`` that JAX's
+    per-game policies (maximin, ``net_lookahead_policy``) take."""
+    legal = bb.unpack2(s.legal).reshape(s.turn.shape + (64,))
+    return OthelloState(board=bb.to_board(s), turn=s.turn, legal=legal,
+                        terminated=s.terminated, winner=s.winner)
+
+
+class DiskDiffNet(torch.nn.Module):
+    """The port twin of JAX's stub ``_stub_apply``
+    (tests/test_chunked_search.py:101-105): zero logits and the value
+    ``(black - white disks) * (2 * turn plane - 1)``, computed in the same
+    float32 steps, so search values are exact integers on both sides."""
+
+    def __init__(self):
+        super().__init__()
+        self.anchor = torch.nn.Parameter(torch.zeros(()),
+                                         requires_grad=False)
+
+    def forward(self, obs):
+        diff = obs[:, 0].sum((1, 2)) - obs[:, 1].sum((1, 2))
+        turn = 2.0 * obs[:, 2, 0, 0] - 1.0
+        return obs.new_zeros(obs.shape[0], 64), diff * turn
 
 
 @functools.cache
