@@ -49,7 +49,26 @@ set to 0 just before it and read just after:
     script writes from its seeded net, against maximin-2 and against
     itself, raw and armed with the search (depth 2 against maximin-2,
     beam-3 against greedy, depth 1 against itself at depth 1), and
-    cli/tournament.py greedy against maximin-2 ([eval_checkpoint]).
+    cli/tournament.py greedy against maximin-2 ([eval_checkpoint]);
+  * recurrent (GRU) PPO on RESULTS.md's rec_wide2 recipe (width 2, hidden
+    512, N 1024, T 32) for 3 updates, the ply kernel on every ply of the
+    recurrent collector; then ppo_update_recurrent card vs CPU, one step
+    and 4 x 4 minibatches per leaf, with three faults planted on the card
+    (the mask reset dropped, h0 zeroed, a b_hr added) that must read above
+    the tolerance ([recurrent_train]);
+  * frame-stacked PPO (--frame-stack 4, wide2, N 1024, T 32, 2 updates)
+    and its frame window after each slot against
+    envs/vec_wrappers.frame_stack_step ([framestack_train]);
+  * time-limited PPO (--max-episode-plies 16, wide2, N 1024, T 64, 2
+    updates) with truncations, and compute_gae_time_limits card = CPU bit
+    for bit ([time_limit_train]);
+  * the wide2 net in bfloat16, card vs CPU with its trunk's activations
+    bfloat16, and 2 --bf16 updates ([bf16]);
+  * cli/eval_checkpoint.py on a rec_wide2 and a frame-stack-4 checkpoint
+    written from seeded nets (raw vs greedy, --lookahead vs maximin-2,
+    against itself armed at depth 1, the frame-stacked one vs greedy),
+    and the recurrent lookahead card vs CPU, one B1 launch a decision
+    ([recurrent_eval]).
 
 It reads no file outside gymothelloenv_tpu_torch/ (the nets are seeded
 inits; the checkpoints it reads are the ones it wrote, in a temporary
@@ -193,6 +212,36 @@ PLANTS = (("shuffle words", {}, SEED + 2),
           ("gae_lambda 0.9", {"gae_lambda": 0.9}, SEED + 1),
           ("clip_param 0.2", {"clip_param": 0.2}, SEED + 1),
           ("max_grad_norm 1.0", {"max_grad_norm": 1.0}, SEED + 1))
+# [recurrent_train]: RESULTS.md's rec_wide2 recipe
+# (data/logs/queue/11_recurrent_wide2.log:1: --recurrent --width-mult 2
+# --num-envs 1024 --num-steps 32 --lr 2.5e-4 --entropy-coef 0.01, hidden
+# 512), 3 updates (cut from 3000).
+REC_WIDTH, REC_HIDDEN = 2, 512
+REC_ENVS, REC_STEPS, REC_UPDATES = 1024, 32, 3
+# Card-vs-CPU ppo_update_recurrent, cut from N 1024: the second rollout of
+# fresh games, so h0 is not zero and games end inside it.
+REC_REF_ENVS, REC_REF_STEPS = 64, 32
+# Faults planted on the card's update that the per-leaf check must see:
+# the mask reset dropped (masks all ones), h0 replaced by zeros, and a
+# b_hr bias (0.1) added to the GRU's reset gate.
+REC_PLANTS = ("mask reset dropped", "h0 zeros", "b_hr added")
+# [framestack_train]: --frame-stack 4 at wide2, N 1024, T 32, 2 updates.
+FS_STACK, FS_ENVS, FS_STEPS, FS_UPDATES = 4, 1024, 32, 2
+# [time_limit_train]: --max-episode-plies 16 at wide2, N 1024, T 64.
+TL_PLIES, TL_ENVS, TL_STEPS, TL_UPDATES = 16, 1024, 64, 2
+# [bf16]: the wide2 net in bfloat16 on BF16_STATES reachable states, card
+# against CPU.  Both round every layer's output to bfloat16 (8 bits of
+# mantissa, a relative step of 2^-8) but sum in other orders, so a layer
+# may round one step apart and the steps carry through the next layers:
+# the outputs are held to BF16_RTOL of their largest magnitude (eight
+# bf16 steps).  Then 2 PPO updates with --bf16 at N 1024, T 64.
+BF16_STATES, BF16_RTOL = 4096, 2.0 ** -5
+BF16_ENVS, BF16_STEPS, BF16_UPDATES = 1024, 64, 2
+# [recurrent_eval]: eval_checkpoint on a rec_wide2 and a frame-stack-4
+# checkpoint the script writes, 200 games a run; the recurrent lookahead
+# card vs CPU on REC_LA_N reachable states with random hidden states.
+REC_EVAL_GAMES = 200
+REC_LA_N = 4096
 DEVICE_TYPE = "cuda"
 
 
@@ -433,6 +482,27 @@ def main():
     la_train = _lookahead_train_phase(torch, tb, legal_mask, step, dev)
     evalck = _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev)
 
+    # 17. recurrent_train, 18. framestack_train, 19. time_limit_train,
+    # 20. bf16, 21. recurrent_eval ------------------------------------------
+    slice7, wall = {}, {}
+    for label, phase in (
+            ("recurrent_train", lambda: _recurrent_train_phase(
+                torch, tb, legal_mask, step, timing, dev)),
+            ("framestack_train", lambda: _framestack_train_phase(
+                torch, tb, legal_mask, step, dev)),
+            ("time_limit_train", lambda: _time_limit_train_phase(
+                torch, tb, legal_mask, step, dev)),
+            ("bf16", lambda: _bf16_phase(torch, tb, ro, legal_mask, step,
+                                         dev, gen, train["update_seconds"])),
+            ("recurrent_eval", lambda: _recurrent_eval_phase(
+                torch, tb, ro, legal_mask, step, dev, gen))):
+        t0 = time.perf_counter()
+        slice7[label] = phase()
+        wall[label] = time.perf_counter() - t0
+    rec = slice7["recurrent_train"]
+    say("[recurrent slice] wall seconds of its phases: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+
     # 11. kernels line --------------------------------------------------------
     rows = [
         dict(name="legal_mask", route="cuda",
@@ -440,12 +510,17 @@ def main():
              replaces="gymothelloenv_tpu/ops/pallas_bitboard.py:76",
              launches=(bench["launches"] + launches["legal_mask"]
                        + train["k2_launches"] + la_train["k2_launches"]
-                       + evalck["k2_launches"]),
+                       + evalck["k2_launches"]
+                       + sum(v["k2_launches"] for v in slice7.values())),
              launches_by_path={"bench": bench["launches"],
                                "eval": launches["legal_mask"],
                                "train": train["k2_launches"],
                                "lookahead_train": la_train["k2_launches"],
-                               "eval_checkpoint": evalck["k2_launches"]},
+                               "eval_checkpoint": evalck["k2_launches"],
+                               **{k: v["k2_launches"]
+                                  for k, v in slice7.items()}},
+             recurrent_reset_ms=rec["k2_ms"],
+             recurrent_reset_boards=REC_ENVS,
              library_ms=None,
              equal=True, tolerance="exact", shape="2 x 512 boards",
              ms_1m=k2_big["ms"], plain_ms_1m=k2_big["plain_ms"],
@@ -463,7 +538,9 @@ def main():
              launches=(launches["bit_step"] + train["bit_step_launches"]
                        + mm["launches"] + la["launches"]
                        + la_train["bit_step_launches"]
-                       + evalck["bit_step_launches"]),
+                       + evalck["bit_step_launches"]
+                       + sum(v["bit_step_launches"]
+                             for v in slice7.values())),
              launches_by_path={"eval": launches["bit_step"],
                                "train": train["bit_step_launches"],
                                "maximin": mm["launches"],
@@ -471,23 +548,32 @@ def main():
                                "lookahead_train":
                                    la_train["bit_step_launches"],
                                "eval_checkpoint":
-                                   evalck["bit_step_launches"]},
+                                   evalck["bit_step_launches"],
+                               **{k: v["bit_step_launches"]
+                                  for k, v in slice7.items()}},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games, where mode (the collector's)",
-             train_ms=train["ply_ms"], maximin=mm["timing"],
+             train_ms=train["ply_ms"], recurrent_train_ms=rec["ply_ms"],
+             maximin=mm["timing"],
              lookahead=la["timing"], lookahead_train=la_train["seconds"],
              **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
              replaces="no Pallas kernel: gymothelloenv_tpu/core/engine.py"
                       ":120 BitEngine.reset_where (XLA-fused)",
-             launches=train["reset_launches"] + la_train["reset_launches"],
+             launches=(train["reset_launches"] + la_train["reset_launches"]
+                       + sum(v["reset_launches"] for v in slice7.values()
+                             if "reset_launches" in v)),
              launches_by_path={"train": train["reset_launches"],
                                "lookahead_train":
-                                   la_train["reset_launches"]},
+                                   la_train["reset_launches"],
+                               **{k: v["reset_launches"]
+                                  for k, v in slice7.items()
+                                  if "reset_launches" in v}},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games (the collector's)",
-             train_ms=train["reset_ms"], **ply["reset_where"]),
+             train_ms=train["reset_ms"], recurrent_train_ms=rec["reset_ms"],
+             **ply["reset_where"]),
         dict(name="rollout", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/rollout.cu",
              replaces="gymothelloenv_tpu/ops/pallas_rollout.py:193",
@@ -1035,6 +1121,7 @@ def _train_phase(torch, tb, legal_mask, step, timing, dev):
         require(count > 0, f"{kname}: not launched on the training path")
     require(not plain_calls, f"training ran the ply's plain version on the "
             f"card: {plain_calls[:3]}")
+    out["update_seconds"] = [m["update_seconds"] for m in records]
     # The ply kernel at the collector's state: every live game steps.
     b = trainer.sp_state.env
     action = tb.random_legal_bit(b.legal, torch.zeros_like(b.legal))
@@ -1544,9 +1631,12 @@ def _fp32_check(torch, net, dev):
         terminated=torch.zeros(n, dtype=torch.bool),
         winner=torch.zeros(n, dtype=torch.int8)))
     cpu_net = copy.deepcopy(net).cpu()
+    # A recurrent net or frame-stack cell from a zero state.
+    state = ((torch.zeros(n, net.hidden_size), torch.ones(n))
+             if getattr(net, "recurrent", False) else ())
     with torch.inference_mode():
-        logits, value = net(x.to(dev))
-        logits_c, value_c = cpu_net(x)
+        logits, value = net(x.to(dev), *(t.to(dev) for t in state))[:2]
+        logits_c, value_c = cpu_net(x, *state)[:2]
     err = max(float((logits.cpu() - logits_c).abs().max()),
               float((value.cpu() - value_c).abs().max()))
     require(bool(torch.isfinite(logits).all()), "trainer net not finite")
@@ -1598,27 +1688,10 @@ def _train_reference_phase(torch, dev):
         return ({k: v.cpu() - start[k] for k, v in n.state_dict().items()},
                 {k: float(v) for k, v in m.items()})
 
-    def leaf_rel(d_card, d_cpu):
-        """Per leaf: the largest delta difference over the leaf's own
-        largest CPU delta."""
-        out = {}
-        for k in start:
-            big = float(d_cpu[k].abs().max())
-            require(big > 0, f"the reference update did not move {k}")
-            out[k] = float((d_card[k] - d_cpu[k]).abs().max()) / big
-        return out
-
-    def check_metrics(m_card, m_cpu):
-        for k in m_cpu:
-            require(abs(m_card[k] - m_cpu[k])
-                    <= REF_METRIC_RTOL * abs(m_cpu[k]) + REF_METRIC_ATOL,
-                    f"card vs CPU {k}: {m_card[k]:.8g} vs {m_cpu[k]:.8g}")
-        return max(abs(m_card[k] - m_cpu[k]) for k in m_cpu)
-
     one = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY, num_updates=1,
                     ppo_epochs=1, num_mini_batch=1)
     (d_card, m_card), (d_cpu, m_cpu) = update(dev, one), update("cpu", one)
-    merr1 = check_metrics(m_card, m_cpu)
+    merr1 = _check_metrics(m_card, m_cpu)
     err1 = max(float((d_card[k] - d_cpu[k]).abs().max()) for k in start)
     big1 = max(float(d.abs().max()) for d in d_cpu.values())
     require(big1 > 1e-4, "the reference update did not move the params")
@@ -1629,13 +1702,13 @@ def _train_reference_phase(torch, dev):
     cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
                     num_updates=TRAIN_UPDATES)
     (d_card, m_card), (d_cpu, m_cpu) = update(dev, cfg), update("cpu", cfg)
-    merr = check_metrics(m_card, m_cpu)
-    rel = leaf_rel(d_card, d_cpu)
+    merr = _check_metrics(m_card, m_cpu)
+    rel = _leaf_rel(d_card, d_cpu)
     worst = max(rel, key=rel.get)
     planted = {}
     for name, change, word_seed in PLANTS:
         d_bad, _ = update(dev, dataclasses.replace(cfg, **change), word_seed)
-        planted[name] = max(leaf_rel(d_bad, d_cpu).values())
+        planted[name] = max(_leaf_rel(d_bad, d_cpu).values())
     say(f"[train_reference] 4 x 4 minibatches, per-leaf |card - CPU| over "
         f"the leaf's largest delta: "
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
@@ -1655,6 +1728,483 @@ def _train_reference_phase(torch, dev):
         f"{REF_PARAM_RTOL}), every planted fault above it (least "
         f"{min(planted.values()):.3e}), metrics to {merr:.3e} (rtol "
         f"{REF_METRIC_RTOL} + atol {REF_METRIC_ATOL}); fp32, TF32 off")
+
+
+def _leaf_rel(d_card, d_cpu):
+    """Per parameter leaf: the largest difference of the card's delta from
+    the CPU's over the leaf's own largest CPU delta."""
+    out = {}
+    for k, d in d_cpu.items():
+        big = float(d.abs().max())
+        require(big > 0, f"the reference update did not move {k}")
+        out[k] = float((d_card[k] - d).abs().max()) / big
+    return out
+
+
+def _check_metrics(m_card, m_cpu):
+    for k in m_cpu:
+        require(abs(m_card[k] - m_cpu[k])
+                <= REF_METRIC_RTOL * abs(m_cpu[k]) + REF_METRIC_ATOL,
+                f"card vs CPU {k}: {m_card[k]:.8g} vs {m_cpu[k]:.8g}")
+    return max(abs(m_card[k] - m_cpu[k]) for k in m_cpu)
+
+
+def _slice_trainer(torch, tb, legal_mask, step, dev, label, ppo_cfg,
+                   run_cfg, updates, fp32=True):
+    """A trainer of the recurrent/frame-stack/time-limit/bf16 slice on the
+    card from its seeded net: both TF32 flags on first, ``updates``
+    updates with the counts of K2 and the ply kernel from 0, no plain
+    ply, finite losses, and after construction TF32 off (with ``fp32``
+    its policy also agrees with a CPU copy).  Returns ``(trainer,
+    records, counts)``."""
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train.ppo_trainer import PPOSelfPlayTrainer
+    records = []
+
+    def log_fn(update, m):
+        records.append(m)
+        cut = (f", truncations {int(m['truncations'])}"
+               if "truncations" in m else "")
+        say(f"[{label}] update {update}: collect "
+            f"{m['collect_seconds']:.3f} s, update "
+            f"{m['update_seconds']:.3f} s, transitions_per_sec="
+            f"{m['transitions_per_sec']:.1f}, value_loss="
+            f"{m['value_loss']:.5g} action_loss={m['action_loss']:.5g} "
+            f"entropy={m['entropy']:.5g}, episodes {int(m['episodes'])}"
+            f"{cut}, collector host syncs {m['collect_syncs']}")
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    # Main path: the counts of K2 and the ply kernel start at 0 here.
+    legal_mask.launches = 0
+    step.bit_step.launches = 0
+    step.reset_where.launches = 0
+    with _no_plain(tb) as plain_calls:
+        trainer = PPOSelfPlayTrainer(EnvConfig(num_disk_as_reward=True),
+                                     ppo_cfg, run_cfg, log_fn=log_fn,
+                                     device=dev)
+        if fp32:
+            _fp32_check(torch, trainer.policy, dev)
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        require(flags == (False, False), f"[{label}] the trainer left TF32 "
+                f"on (matmul, cuDNN) = {flags}")
+        trainer.train(updates, log_every=1)
+        torch.cuda.synchronize()
+    counts = dict(k2_launches=legal_mask.launches,
+                  bit_step_launches=step.bit_step.launches,
+                  reset_launches=step.reset_where.launches)
+    require(len(records) == updates, f"[{label}] the trainer skipped an "
+            "update")
+    for m in records:
+        for key in ("value_loss", "action_loss", "entropy"):
+            require(math.isfinite(m[key]), f"[{label}] {key} is not finite: "
+                    f"{m[key]}")
+    for kname, count in counts.items():
+        require(count > 0, f"[{label}] {kname}: not launched")
+    require(not plain_calls, f"[{label}] ran the ply's plain version on the "
+            f"card: {plain_calls[:3]}")
+    counts["seconds"] = {k: [m[k] for m in records] for k in (
+        "collect_seconds", "update_seconds", "transitions_per_sec")}
+    return trainer, records, counts
+
+
+def _recurrent_train_phase(torch, tb, legal_mask, step, timing, dev):
+    """The rec_wide2 recipe for REC_UPDATES updates; the ply kernel and
+    reset_where on its collector's state and K2 at its reset's boards,
+    against plain and timed; then ppo_update_recurrent card vs CPU
+    (``_recurrent_reference``)."""
+    from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+    from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask_plain
+    from gymothelloenv_tpu_torch.train.ppo_trainer import SelfPlayConfig
+    say(f"[recurrent_train] start: PPOSelfPlayTrainer --recurrent, "
+        f"width_mult {REC_WIDTH}, hidden {REC_HIDDEN}, N={REC_ENVS}, "
+        f"T={REC_STEPS}, lr {TRAIN_LR}, entropy {TRAIN_ENTROPY}, "
+        f"{REC_UPDATES} updates (the rec_wide2 recipe, cut from 3000)")
+    ppo_cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                        num_updates=REC_UPDATES)
+    run_cfg = SelfPlayConfig(num_envs=REC_ENVS, num_steps=REC_STEPS,
+                             hidden_size=REC_HIDDEN, width_mult=REC_WIDTH,
+                             recurrent=True, test_interval=10 ** 9,
+                             seed=SEED)
+    trainer, records, out = _slice_trainer(
+        torch, tb, legal_mask, step, dev, "recurrent_train", ppo_cfg,
+        run_cfg, REC_UPDATES)
+    b = trainer.sp_state.env
+    action = tb.random_legal_bit(b.legal, torch.zeros_like(b.legal))
+    live = ~b.terminated
+    e = _ply_err(torch, tb, step.bit_step(b, action, True, True, do=live),
+                 tb.bit_step_plain(b, action, True, True, do=live))
+    e = max(e, _ply_err(torch, tb, step.reset_where(b, b.terminated),
+                        tb.reset_where_plain(b, b.terminated)))
+    fresh = tb.opening(REC_ENVS, dev)
+    require(e == 0 and torch.equal(
+        legal_mask(fresh.black, fresh.white),
+        legal_mask_plain(fresh.black, fresh.white)),
+        f"a kernel on the recurrent collector's state differs from plain "
+        f"({e})")
+    out["ply_ms"] = timing.device_ms(
+        lambda: step.bit_step(b, action, True, True, do=live), 200)
+    out["reset_ms"] = timing.device_ms(
+        lambda: step.reset_where(b, b.terminated), 200)
+    out["k2_ms"] = timing.device_ms(
+        lambda: legal_mask(fresh.black, fresh.white), 200)
+    say(f"[recurrent_train] kernels on its states, exact vs plain: the ply "
+        f"kernel {out['ply_ms']:.5f} ms, reset_where {out['reset_ms']:.5f} "
+        f"ms at {REC_ENVS} games, K2 {out['k2_ms']:.5f} ms at a "
+        f"{REC_ENVS}-game bit_reset (device time); launches bit_step "
+        f"{out['bit_step_launches']}, reset_where {out['reset_launches']}, "
+        f"K2 {out['k2_launches']}, no plain ply, TF32 off")
+    out["reference"] = _recurrent_reference(torch, dev)
+    say(f"[recurrent_train] ok: collect "
+        + ", ".join(f"{x:.3f}" for x in out["seconds"]["collect_seconds"])
+        + " s, update "
+        + ", ".join(f"{x:.3f}" for x in out["seconds"]["update_seconds"])
+        + " s, transitions_per_sec "
+        + ", ".join(f"{x:.1f}" for x in
+                    out["seconds"]["transitions_per_sec"]))
+    return out
+
+
+def _recurrent_reference(torch, dev):
+    """ppo_update_recurrent on the card and on the CPU from the same
+    params, the same rollout (the second of fresh games, collected on the
+    card, so h0 is not zero and games end in it) and the same env
+    permutations: one optimizer step, then 4 epochs x 4 minibatches per
+    leaf, also with each fault of REC_PLANTS on the card."""
+    from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, Transition,
+                                                    make_optimizer,
+                                                    ppo_update_recurrent)
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train.ppo_trainer import (make_network,
+                                                           make_split_fns)
+    from gymothelloenv_tpu_torch.train.self_play import (
+        Draws, collect_rollout_recurrent, selfplay_init_recurrent)
+    say(f"[recurrent_train] reference: ppo_update_recurrent card vs CPU, "
+        f"rec_wide2, N={REC_REF_ENVS}, T={REC_REF_STEPS}: one step, then 4 "
+        f"epochs x 4 minibatches, then the latter with each planted fault "
+        f"({', '.join(REC_PLANTS)}) on the card")
+    env_cfg = EnvConfig(num_disk_as_reward=True)
+
+    def fresh_net(device):
+        return make_network(env_cfg, REC_HIDDEN, REC_WIDTH, SEED + 3, device,
+                            recurrent=True).train()
+
+    net = fresh_net(dev)
+    draws = Draws(torch.Generator(dev).manual_seed(SEED + 3))
+    sp = selfplay_init_recurrent(net, env_cfg, REC_REF_ENVS, REC_HIDDEN,
+                                 draws)
+    sp, *_ = collect_rollout_recurrent(net, sp, env_cfg, REC_REF_STEPS, draws)
+    _, rollout, h0, masks, boot = collect_rollout_recurrent(
+        net, sp, env_cfg, REC_REF_STEPS, draws)
+    require(float(h0.abs().max()) > 0 and bool((masks == 0).any()),
+            "the reference rollout has a zero h0 or no ended game")
+    inputs = {dev: (rollout, h0, masks, boot),
+              "cpu": (Transition(**{k: v.cpu() for k, v in
+                                    vars(rollout).items()}),
+                      h0.cpu(), masks.cpu(), boot.cpu())}
+    start = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+
+    def update(device, cfg, fault=None):
+        perms = [torch.randperm(REC_REF_ENVS, generator=torch.Generator()
+                                .manual_seed(SEED + 3 + e))
+                 for e in range(cfg.ppo_epochs)]
+        n = fresh_net(device)
+        n.load_state_dict(start)
+        roll, h0_, masks_, boot_ = inputs[device]
+        if fault == "mask reset dropped":
+            masks_ = torch.ones_like(masks_)
+        elif fault == "h0 zeros":
+            h0_ = torch.zeros_like(h0_)
+        elif fault == "b_hr added":
+            hr = n.gru.hr
+            n.gru.hr = torch.nn.Linear(hr.in_features, hr.out_features,
+                                       device=device)
+            with torch.no_grad():
+                n.gru.hr.weight.copy_(hr.weight)
+                n.gru.hr.bias.fill_(0.1)
+        m = ppo_update_recurrent(n, make_optimizer(cfg, n.parameters()),
+                                 roll, h0_, masks_, boot_, cfg, perms=perms,
+                                 split_fns=make_split_fns(n))
+        sd = n.state_dict()
+        return ({k: sd[k].cpu() - start[k] for k in start},
+                {k: float(v) for k, v in m.items()})
+
+    one = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY, num_updates=1,
+                    ppo_epochs=1, num_mini_batch=1)
+    (d_card, m_card), (d_cpu, m_cpu) = update(dev, one), update("cpu", one)
+    merr1 = _check_metrics(m_card, m_cpu)
+    err1 = max(float((d_card[k] - d_cpu[k]).abs().max()) for k in start)
+    big1 = max(float(d.abs().max()) for d in d_cpu.values())
+    require(big1 > 1e-4, "the reference update did not move the params")
+    require(err1 <= REF_ONE_STEP_ATOL,
+            f"recurrent one step: card vs CPU param deltas differ by "
+            f"{err1:.3e} > {REF_ONE_STEP_ATOL}")
+    cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                    num_updates=REC_UPDATES)
+    (d_card, m_card), (d_cpu, m_cpu) = update(dev, cfg), update("cpu", cfg)
+    merr = _check_metrics(m_card, m_cpu)
+    rel = _leaf_rel(d_card, d_cpu)
+    worst = max(rel, key=rel.get)
+    planted = {name: max(_leaf_rel(update(dev, cfg, name)[0],
+                                   d_cpu).values()) for name in REC_PLANTS}
+    say("[recurrent_train] reference, 4 x 4 minibatches, per-leaf |card - "
+        "CPU| over the leaf's largest delta: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
+    say("[recurrent_train] reference, planted faults on the card: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in planted.items()))
+    require(rel[worst] <= REF_PARAM_RTOL,
+            f"recurrent card vs CPU deltas of {worst} differ by "
+            f"{rel[worst]:.3e} of its largest delta > {REF_PARAM_RTOL}")
+    for name, reading in planted.items():
+        require(reading > REF_PARAM_RTOL,
+                f"the planted fault '{name}' reads {reading:.3e}, inside "
+                f"the tolerance {REF_PARAM_RTOL}: the check cannot see it")
+    say(f"[recurrent_train] reference ok: one step: deltas (max "
+        f"{big1:.3e}) agree to {err1:.3e} (atol {REF_ONE_STEP_ATOL}), "
+        f"metrics to {merr1:.3e}; 4 x 4: deltas to {rel[worst]:.3e} of the "
+        f"largest delta of each leaf (worst {worst}; rtol "
+        f"{REF_PARAM_RTOL}), every planted fault above it (least "
+        f"{min(planted.values()):.3e}), metrics to {merr:.3e}")
+    return dict(one_step_err=err1, leaf_rel=rel[worst], planted=planted)
+
+
+def _framestack_train_phase(torch, tb, legal_mask, step, dev):
+    """--frame-stack FS_STACK at wide2 for FS_UPDATES updates; then
+    FS_STEPS more slots one at a time, each slot's frame window (the
+    decision's state and its observation) against
+    ``envs.vec_wrappers.frame_stack_step`` from the one before, on the
+    card."""
+    from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+    from gymothelloenv_tpu_torch.envs.vec_wrappers import (FrameStackState,
+                                                           frame_stack_step)
+    from gymothelloenv_tpu_torch.train.ppo_trainer import SelfPlayConfig
+    from gymothelloenv_tpu_torch.train.self_play import (
+        collect_rollout_recurrent)
+    say(f"[framestack_train] start: --frame-stack {FS_STACK}, wide2, "
+        f"N={FS_ENVS}, T={FS_STEPS}, {FS_UPDATES} updates; then the frame "
+        f"window of {FS_STEPS} slots vs frame_stack_step")
+    ppo_cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                        num_updates=FS_UPDATES)
+    run_cfg = SelfPlayConfig(num_envs=FS_ENVS, num_steps=FS_STEPS,
+                             hidden_size=HIDDEN, width_mult=WIDTH_MULT,
+                             frame_stack=FS_STACK, test_interval=10 ** 9,
+                             seed=SEED)
+    trainer, _, out = _slice_trainer(torch, tb, legal_mask, step, dev,
+                                     "framestack_train", ppo_cfg, run_cfg,
+                                     FS_UPDATES)
+    sp, ref, ends = trainer.sp_state, None, 0
+    for _ in range(FS_STEPS):
+        sp, roll, h_t, _, _ = collect_rollout_recurrent(
+            trainer.policy, sp, trainer.env_cfg, 1, trainer.draws)
+        obs = roll.obs[0].to(torch.float32)
+        window = torch.cat([h_t.reshape(FS_ENVS, 4 * (FS_STACK - 1), 8, 8),
+                            obs], 1)
+        if ref is None:
+            ref = FrameStackState(stacked=window, nstack=FS_STACK)
+        else:
+            ref = frame_stack_step(ref, obs, done)
+            require(torch.equal(ref.stacked, window), "the collector's frame "
+                    "window differs from frame_stack_step's")
+        done = roll.done[0]
+        ends += int(done.sum())
+    require(ends > 0, "no episode ended in the frame-window check")
+    say(f"[framestack_train] ok: the frame window equals frame_stack_step's "
+        f"after each of {FS_STEPS} slots at N {FS_ENVS} ({ends} episode "
+        f"ends); launches bit_step {out['bit_step_launches']}, reset_where "
+        f"{out['reset_launches']}, K2 {out['k2_launches']}, no plain ply")
+    return out
+
+
+def _time_limit_train_phase(torch, tb, legal_mask, step, dev):
+    """--max-episode-plies TL_PLIES at wide2 for TL_UPDATES updates
+    (truncations in every one); then one more time-limited collection
+    and its compute_gae_time_limits, card bit-equal to CPU."""
+    from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, Transition,
+                                                    compute_gae_time_limits)
+    from gymothelloenv_tpu_torch.train.ppo_trainer import SelfPlayConfig
+    from gymothelloenv_tpu_torch.train.self_play import (
+        collect_rollout_time_limited)
+    say(f"[time_limit_train] start: --max-episode-plies {TL_PLIES}, wide2, "
+        f"N={TL_ENVS}, T={TL_STEPS}, {TL_UPDATES} updates; then "
+        "compute_gae_time_limits card vs CPU on a collected rollout")
+    ppo_cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                        num_updates=TL_UPDATES)
+    run_cfg = SelfPlayConfig(num_envs=TL_ENVS, num_steps=TL_STEPS,
+                             hidden_size=HIDDEN, width_mult=WIDTH_MULT,
+                             max_episode_plies=TL_PLIES,
+                             test_interval=10 ** 9, seed=SEED)
+    trainer, records, out = _slice_trainer(
+        torch, tb, legal_mask, step, dev, "time_limit_train", ppo_cfg,
+        run_cfg, TL_UPDATES)
+    require(all(m["truncations"] > 0 for m in records),
+            "an update had no truncation")
+    sp, elapsed = trainer.sp_state
+    _, _, rollout, bad, boot = collect_rollout_time_limited(
+        trainer.net, sp, elapsed, trainer.env_cfg, TL_STEPS, TL_PLIES,
+        trainer.draws)
+    require(bool(bad.any()), "the rollout has no truncated episode")
+    adv, ret = compute_gae_time_limits(rollout, bad, boot, trainer.ppo_cfg)
+    cpu = Transition(**{k: v.cpu() for k, v in vars(rollout).items()})
+    adv_c, ret_c = compute_gae_time_limits(cpu, bad.cpu(), boot.cpu(),
+                                           trainer.ppo_cfg)
+    require(torch.equal(adv.cpu(), adv_c) and torch.equal(ret.cpu(), ret_c),
+            "compute_gae_time_limits on the card differs from the CPU's")
+    out["truncations"] = [int(m["truncations"]) for m in records]
+    say(f"[time_limit_train] ok: truncations {out['truncations']}; "
+        f"compute_gae_time_limits bit-equal card vs CPU on {int(bad.sum())} "
+        f"truncated and {int((rollout.done & ~bad).sum())} finished "
+        f"episodes; launches bit_step {out['bit_step_launches']}, "
+        f"reset_where {out['reset_launches']}, K2 {out['k2_launches']}")
+    return out
+
+
+def _bf16_phase(torch, tb, ro, legal_mask, step, dev, gen, f32_update_s):
+    """The wide2 net in bfloat16 on BF16_STATES states, card against CPU
+    bfloat16 to BF16_RTOL, its trunk's activations bfloat16 (a forward
+    hook) and its outputs off the float32 net's; then BF16_UPDATES PPO
+    updates with --bf16, the update seconds beside [train]'s float32
+    ones."""
+    from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+    from gymothelloenv_tpu_torch.core.featurize import make_state
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train.ppo_trainer import (SelfPlayConfig,
+                                                           make_network)
+    say(f"[bf16] start: the wide2 net in bfloat16 on {BF16_STATES} states, "
+        f"card vs CPU (rtol {BF16_RTOL} of the largest output); then "
+        f"{BF16_UPDATES} --bf16 updates at N={BF16_ENVS}, T={BF16_STEPS}")
+    env_cfg = EnvConfig(num_disk_as_reward=True)
+    net = make_network(env_cfg, HIDDEN, WIDTH_MULT, SEED, dev,
+                       bf16=True).eval()
+    state, _, _, _ = _ply_inputs(torch, tb, ro, BF16_STATES, dev, gen)
+    x = make_state(state)
+    cpu_net = copy.deepcopy(net).cpu()
+    f32_net = copy.deepcopy(net)
+    f32_net.dtype = torch.float32
+    seen = []
+    hook = net.trunk.register_forward_hook(
+        lambda module, args, out: seen.append(out.dtype))
+    with torch.inference_mode():
+        out = net(x)
+        hook.remove()
+        out_c = cpu_net(x.cpu())
+        out_32 = f32_net(x)
+    err = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(out, out_c))
+    off = max(float((a - b).abs().max()) for a, b in zip(out, out_32))
+    require(seen == [torch.bfloat16],
+            f"the trunk's activations are not bfloat16: {seen}")
+    require(all(o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+                for o in out), "bf16 outputs not finite float32")
+    require(err <= BF16_RTOL, f"bf16 card vs CPU: {err:.3e} of the largest "
+            f"output > {BF16_RTOL}")
+    require(off > 0, "the bf16 net's outputs equal the float32 net's")
+    ppo_cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                        num_updates=BF16_UPDATES)
+    run_cfg = SelfPlayConfig(num_envs=BF16_ENVS, num_steps=BF16_STEPS,
+                             hidden_size=HIDDEN, width_mult=WIDTH_MULT,
+                             bf16=True, test_interval=10 ** 9, seed=SEED)
+    _, _, counts = _slice_trainer(torch, tb, legal_mask, step, dev, "bf16",
+                                  ppo_cfg, run_cfg, BF16_UPDATES, fp32=False)
+    counts.update(card_cpu_rel=err, off_float32=off)
+    say(f"[bf16] ok: trunk activations bfloat16 (hook), outputs float32; "
+        f"card vs CPU {err:.3e} of the largest output (rtol {BF16_RTOL}); "
+        f"off the float32 net by {off:.3e}; update seconds bf16 "
+        + ", ".join(f"{t:.3f}" for t in counts["seconds"]["update_seconds"])
+        + " against [train]'s float32 "
+        + ", ".join(f"{t:.3f}" for t in f32_update_s)
+        + f" (N {BF16_ENVS} vs {TRAIN_ENVS}, T {BF16_STEPS} vs "
+        f"{TRAIN_STEPS}); no gain is claimed")
+    return counts
+
+
+def _recurrent_eval_phase(torch, tb, ro, legal_mask, step, dev, gen):
+    """cli.eval_checkpoint on a rec_wide2 checkpoint and a frame-stack
+    checkpoint written from seeded nets: raw vs greedy, --lookahead vs
+    maximin-2, against itself armed at depth 1, and the frame-stacked one
+    vs greedy; then the recurrent lookahead on REC_LA_N states card vs
+    CPU (decisions where the margin exceeds LOOKAHEAD_MARGIN), one B1
+    launch a decision."""
+    from gymothelloenv_tpu_torch.cli import eval_checkpoint
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.models.convert import flax_tree
+    from gymothelloenv_tpu_torch.train.ppo_trainer import (
+        lookahead_recurrent, make_network)
+    from gymothelloenv_tpu_torch.utils.checkpoint import save_checkpoint
+    say(f"[recurrent_eval] start: eval_checkpoint on a rec_wide2 and a "
+        f"frame-stack-{FS_STACK} checkpoint of seeded nets, "
+        f"{REC_EVAL_GAMES} games a run; the recurrent lookahead card vs "
+        f"CPU on {REC_LA_N} states")
+    env_cfg = EnvConfig(num_disk_as_reward=True)
+    rec = make_network(env_cfg, REC_HIDDEN, REC_WIDTH, SEED, dev,
+                       recurrent=True).eval()
+    stacked = make_network(env_cfg, HIDDEN, WIDTH_MULT, SEED, dev,
+                           frame_stack=FS_STACK).eval()
+    seconds, by_run = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_path = os.path.join(tmp, "rec_wide2.msgpack")
+        fs_path = os.path.join(tmp, "framestack.msgpack")
+        save_checkpoint(rec_path, 0, flax_tree(rec))
+        save_checkpoint(fs_path, 0, flax_tree(stacked))
+        runs = (("rec raw vs greedy", rec_path, "greedy", ()),
+                ("rec --lookahead vs maximin-2", rec_path, "maximin-2",
+                 ("--lookahead",)),
+                ("rec vs itself --opp-lookahead-depth 1", rec_path,
+                 f"ckpt:{rec_path}", ("--opp-lookahead-depth", "1")),
+                ("frame-stack vs greedy", fs_path, "greedy", ()))
+        # Main path: the counts of K2 and the ply kernel start at 0 here.
+        legal_mask.launches = 0
+        step.bit_step.launches = 0
+        with _no_plain(tb) as plain_calls:
+            for label, path, opp, flags in runs:
+                before = (legal_mask.launches, step.bit_step.launches)
+                t0 = time.perf_counter()
+                w, d, l = eval_checkpoint.main([
+                    "--load", path, "--opponent", opp, *flags, "--games",
+                    str(REC_EVAL_GAMES), "--seed", str(SEED), "--device",
+                    DEVICE_TYPE])
+                torch.cuda.synchronize()
+                seconds[label] = time.perf_counter() - t0
+                by_run[label] = (legal_mask.launches - before[0],
+                                 step.bit_step.launches - before[1])
+                require(w + d + l == REC_EVAL_GAMES,
+                        f"eval_checkpoint {label} lost games")
+    out = dict(k2_launches=legal_mask.launches,
+               bit_step_launches=step.bit_step.launches)
+    for kname, count in out.items():
+        require(count > 0, f"{kname}: not launched on the recurrent eval "
+                "path")
+    require(not plain_calls, f"the recurrent eval ran the ply's plain "
+            f"version on the card: {plain_calls[:3]}")
+    state, _, _, _ = _ply_inputs(torch, tb, ro, REC_LA_N, dev, gen)
+    h = torch.rand(REC_LA_N, REC_HIDDEN, generator=gen, device=dev) * 2 - 1
+    before = step.bit_step.launches
+    got = lookahead_recurrent(rec, state, h, env_cfg)
+    per_decision = step.bit_step.launches - before
+    cpu_state = tb.BitState(**{k: v.cpu() for k, v in vars(state).items()})
+    want = lookahead_recurrent(copy.deepcopy(rec).cpu(), cpu_state, h.cpu(),
+                               env_cfg)
+    held = want[2] > LOOKAHEAD_MARGIN
+    legal = tb.unpack_flat(cpu_state.legal)
+    same = int((got[0].cpu() == want[0]).sum())
+    val_err = float((got[1].cpu() - want[1])[legal].abs().max())
+    h_err = float((got[3].cpu() - want[3]).abs().max())
+    require(per_decision == 1, f"{per_decision} B1 launches a recurrent "
+            "lookahead decision, expected 1")
+    require(torch.equal(got[0].cpu()[held], want[0][held]),
+            "recurrent lookahead decisions differ card vs CPU")
+    require(val_err <= LOOKAHEAD_ATOL and h_err <= LOOKAHEAD_ATOL,
+            f"recurrent lookahead values or state differ card vs CPU: "
+            f"{val_err:.2e}, {h_err:.2e} > {LOOKAHEAD_ATOL}")
+    out.update(seconds=seconds, by_run=by_run, la_held=int(held.sum()),
+               la_same=same, la_value_err=val_err)
+    say(f"[recurrent_eval] ok: wall seconds (K2, ply-kernel launches): "
+        + ", ".join(f"{k} {v:.2f} {by_run[k]}" for k, v in seconds.items())
+        + f"; no plain ply; the recurrent lookahead on {REC_LA_N} states: "
+        f"{int(held.sum())} held by the margin, {same} equal, values to "
+        f"{val_err:.2e}, state to {h_err:.2e}, {per_decision} B1 launch a "
+        "decision")
+    return out
 
 
 def _index_policies(torch, tb):

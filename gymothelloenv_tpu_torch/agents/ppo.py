@@ -1,9 +1,12 @@
 """PPO with GAE — the port of ``agents/ppo.py`` (the vendored update rule,
-a2c_ppo_acktr/algo/ppo.py:34-110 + storage.py:73-112), feed-forward path.
+a2c_ppo_acktr/algo/ppo.py:34-110 + storage.py:73-112): the feed-forward
+update (with proper time limits or per-slot weights) and the recurrent one
+(``ppo_update_recurrent``, the ``recurrent_generator`` path).
 
 GAE is a reverse loop over T; the K-epoch minibatch loop indexes the flat
 rollout with the epoch's hash permutation (``ops/shuffle.py``) and takes
-one optimizer step per minibatch.  The TPU's gather workarounds
+one optimizer step per minibatch; the recurrent update's minibatches are
+env subsets, each replaying the core over all T steps.  The TPU's gather workarounds
 (``ops/gather.pack_rows``, one-hot selects) are not ported: the flat
 tensors are indexed directly.
 
@@ -148,7 +151,8 @@ class Optimizer:
         ``last_epoch`` from its count, with each group's ``lr`` recomputed
         to ``lr * (1 - k / total)``.  Another layout raises
         ``ValueError``: optax.flatten's flat vectors
-        (``flatten_optimizer``), a recurrent net's tree, or a schedule
+        (``flatten_optimizer``), the tree of another net (a GRU where
+        the net has none, or the reverse), or a schedule
         state where this optimizer has a constant rate (or none where it
         has one)."""
         kind = "a linear schedule" if self.schedule else "a constant lr"
@@ -218,6 +222,31 @@ def compute_gae(rollout: Transition, bootstrap_value: torch.Tensor,
 
 
 @torch.no_grad()
+def compute_gae_time_limits(rollout: Transition,
+                            bad_transition: torch.Tensor,
+                            bootstrap_value: torch.Tensor, cfg: PPOConfig):
+    """GAE with proper time limits (storage.py:79-96): a transition cut by
+    the step cap (``bad_transition``, (T, N) bool from
+    ``envs.vec_wrappers.time_limit_step``) has its advantage zeroed and
+    nothing bootstraps back through it.  With no truncation it equals
+    ``compute_gae`` exactly."""
+    next_values = torch.cat([rollout.value[1:], bootstrap_value[None]], 0)
+    next_mask = 1.0 - rollout.done.to(torch.float32)
+    bad_mask = 1.0 - bad_transition.to(torch.float32)
+    deltas = (rollout.reward + cfg.gamma * next_values * next_mask
+              - rollout.value)
+    adv = torch.empty_like(deltas)
+    gae = torch.zeros_like(bootstrap_value)
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        # (delta + c * mask * gae) * bad, the sum in one rounding as XLA's
+        # fused multiply-add (see compute_gae).
+        gae = torch.addcmul(deltas[t], cfg.gamma * cfg.gae_lambda
+                            * next_mask[t], gae) * bad_mask[t]
+        adv[t] = gae
+    return adv, adv + rollout.value
+
+
+@torch.no_grad()
 def compute_gae_masked(rollout: Transition, weights: torch.Tensor,
                        bootstrap_value: torch.Tensor, cfg: PPOConfig):
     """GAE over streams with invalid (weight-0) slots, which are
@@ -244,62 +273,103 @@ def compute_gae_masked(rollout: Transition, weights: torch.Tensor,
 
 def ppo_loss(net: torch.nn.Module, batch: Transition,
              advantages: torch.Tensor, returns: torch.Tensor,
-             cfg: PPOConfig):
+             cfg: PPOConfig, weights: torch.Tensor | None = None):
     """Clipped-surrogate PPO loss on a flat minibatch (algo/ppo.py:50-104);
     returns ``(total, {value_loss, action_loss, entropy})``."""
     logits, values = net(batch.obs.to(torch.float32))
-    return ppo_loss_terms(logits, values, batch, advantages, returns, cfg)
+    return ppo_loss_terms(logits, values, batch, advantages, returns, cfg,
+                          weights)
 
 
 def ppo_loss_terms(logits: torch.Tensor, values: torch.Tensor,
                    batch: Transition, advantages: torch.Tensor,
-                   returns: torch.Tensor, cfg: PPOConfig):
-    """The loss given the network's outputs on the minibatch."""
+                   returns: torch.Tensor, cfg: PPOConfig,
+                   weights: torch.Tensor | None = None):
+    """The loss given the network's outputs on the minibatch; ``weights``
+    (per-row 0/1) leave weight-0 rows out of every mean."""
+    if weights is None:
+        def wmean(x):
+            return x.mean()
+    else:
+        denom = weights.sum().clamp(min=1.0)
+
+        def wmean(x):
+            return (x * weights).sum() / denom
+
     dist = MaskedCategorical(logits=logits, mask=batch.legal)
     logp = dist.log_prob(batch.action)
     if cfg.distill:
         # Cross-entropy to the taken (search-improved) action; the
         # advantages are unused.
-        action_loss = -logp.mean()
+        action_loss = -wmean(logp)
     else:
         ratio = torch.exp(logp - batch.logp)
         surr1 = ratio * advantages
         surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param,
                             1.0 + cfg.clip_param) * advantages
-        action_loss = -torch.minimum(surr1, surr2).mean()
+        action_loss = -wmean(torch.minimum(surr1, surr2))
 
     if cfg.use_clipped_value_loss:
         value_clipped = batch.value + torch.clamp(
             values - batch.value, -cfg.clip_param, cfg.clip_param)
-        value_loss = 0.5 * torch.maximum(
-            (values - returns) ** 2, (value_clipped - returns) ** 2).mean()
+        value_loss = 0.5 * wmean(torch.maximum(
+            (values - returns) ** 2, (value_clipped - returns) ** 2))
     else:
-        value_loss = 0.5 * ((returns - values) ** 2).mean()
+        value_loss = 0.5 * wmean((returns - values) ** 2)
 
     # Reference entropy bonus: the UNMASKED softmax (model.py:178-179).
-    entropy = dist.entropy_full().mean()
+    entropy = wmean(dist.entropy_full())
     total = (value_loss * cfg.value_loss_coef + action_loss
              - entropy * cfg.entropy_coef)
     return total, {"value_loss": value_loss, "action_loss": action_loss,
                    "entropy": entropy}
 
 
+def _advantages(rollout: Transition, bootstrap_value: torch.Tensor,
+                cfg: PPOConfig, weights=None, bad_transition=None):
+    """GAE (plain, with proper time limits, or over weighted slots) and
+    the normalised advantages (population std, as JAX's ``std``; the
+    weighted mean and std with ``weights``).  Returns ``(adv,
+    returns)``."""
+    if bad_transition is not None:
+        if weights is not None:
+            raise ValueError("weights and bad_transition are exclusive")
+        adv, returns = compute_gae_time_limits(rollout, bad_transition,
+                                               bootstrap_value, cfg)
+    elif weights is None:
+        adv, returns = compute_gae(rollout, bootstrap_value, cfg)
+    else:
+        adv, returns = compute_gae_masked(rollout, weights,
+                                          bootstrap_value, cfg)
+        denom = weights.sum().clamp(min=1.0)
+        mean = (adv * weights).sum() / denom
+        var = (((adv - mean) ** 2) * weights).sum() / denom
+        return (adv - mean) / (torch.sqrt(var) + 1e-5), returns
+    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-5), returns
+
+
 def ppo_update(net: torch.nn.Module, optimizer: Optimizer,
                rollout: Transition, bootstrap_value: torch.Tensor,
-               epoch_words: torch.Tensor, cfg: PPOConfig):
+               epoch_words: torch.Tensor, cfg: PPOConfig,
+               weights: torch.Tensor | None = None,
+               bad_transition: torch.Tensor | None = None):
     """One full PPO update in place on ``net``: GAE, advantage
-    normalisation (population std, as JAX's ``std``), then ``ppo_epochs``
-    epochs of ``num_mini_batch`` shuffled minibatches.
+    normalisation, then ``ppo_epochs`` epochs of ``num_mini_batch``
+    shuffled minibatches.
 
     ``epoch_words`` (ppo_epochs, 4): each epoch's shuffle key words (JAX:
     ``jax.random.bits(k, (4,))`` for each ``k`` in
-    ``jax.random.split(key, ppo_epochs)``).  Returns the metrics averaged
-    over every minibatch, as 0-d tensors on the rollout's device."""
+    ``jax.random.split(key, ppo_epochs)``).  ``weights`` (optional (T, N)
+    0/1) leave weight-0 slots out (``compute_gae_masked``);
+    ``bad_transition`` (optional (T, N) bool, exclusive with ``weights``)
+    switches GAE to ``compute_gae_time_limits``.  Returns the metrics
+    averaged over every minibatch, as 0-d tensors on the rollout's
+    device."""
     if tuple(epoch_words.shape) != (cfg.ppo_epochs, 4):
         raise ValueError(f"epoch_words must be ({cfg.ppo_epochs}, 4), got "
                          f"{tuple(epoch_words.shape)}")
-    adv, returns = compute_gae(rollout, bootstrap_value, cfg)
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+    adv, returns = _advantages(rollout, bootstrap_value, cfg, weights,
+                               bad_transition)
 
     T, N = rollout.reward.shape
     batch_size = T * N
@@ -309,6 +379,7 @@ def ppo_update(net: torch.nn.Module, optimizer: Optimizer,
         (batch_size,) + getattr(rollout, name).shape[2:])
         for name in ("obs", "action", "logp", "value", "legal")}
     flat_adv, flat_ret = adv.reshape(-1), returns.reshape(-1)
+    flat_w = None if weights is None else weights.reshape(-1)
     use_hash = cfg.shuffle == "hash" and is_power_of_two(batch_size)
 
     metrics = []
@@ -324,7 +395,87 @@ def ppo_update(net: torch.nn.Module, optimizer: Optimizer,
                                **{k: v[idx] for k, v in flat.items()})
             optimizer.zero_grad()
             loss, terms = ppo_loss(net, batch, flat_adv[idx],
-                                   flat_ret[idx], cfg)
+                                   flat_ret[idx], cfg,
+                                   None if flat_w is None else flat_w[idx])
+            loss.backward()
+            optimizer.step()
+            metrics.append(torch.stack([t.detach() for t in terms.values()]))
+    mean = torch.stack(metrics).mean(0)
+    return dict(zip(("value_loss", "action_loss", "entropy"), mean))
+
+
+def ppo_update_recurrent(net: torch.nn.Module, optimizer: Optimizer,
+                         rollout: Transition, h0: torch.Tensor,
+                         masks: torch.Tensor, bootstrap_value: torch.Tensor,
+                         cfg: PPOConfig, perms=None,
+                         generator: torch.Generator | None = None,
+                         split_fns: tuple | None = None):
+    """The recurrent PPO update (JAX ``ppo_update_recurrent``; the vendored
+    ``recurrent_generator``, storage.py:159-216) in place on ``net``.
+
+    Minibatches are env subsets, ``N // num_mini_batch`` envs each; every
+    optimizer step replays the core over all ``T`` steps from each env's
+    rollout-start hidden state ``h0`` (N, H), zeroing it where ``masks``
+    (T, N) is 0 (``masks[t] = 1 - done[t-1]``, ``masks[0]`` the validity
+    of ``h0``).  ``net(obs_t, h, mask_t) -> (logits, value, h')``.
+    ``split_fns``: ``(features, core, heads)`` of ``net``
+    (``PolicyNet.features/core/heads``); then the trunk runs once over all
+    ``T * envs`` rows of a minibatch and only ``core`` steps through T.
+
+    ``perms``: one env permutation (N,) per epoch (JAX draws
+    ``jax.random.permutation(epoch_key, N)``); ``None`` draws them with
+    ``torch.randperm`` from ``generator`` (on the CPU).  Returns the
+    metrics averaged over every minibatch."""
+    adv, returns = compute_gae(rollout, bootstrap_value, cfg)
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+    T, N = rollout.reward.shape
+    if N % cfg.num_mini_batch:
+        raise ValueError(
+            f"num_envs ({N}) must divide by num_mini_batch "
+            f"({cfg.num_mini_batch}) for the recurrent generator")
+    envs_mb = N // cfg.num_mini_batch
+    device = rollout.reward.device
+    if perms is None:
+        perms = [torch.randperm(N, generator=generator)
+                 for _ in range(cfg.ppo_epochs)]
+    if len(perms) != cfg.ppo_epochs:
+        raise ValueError(f"perms must hold {cfg.ppo_epochs} permutations, "
+                         f"got {len(perms)}")
+    fields = ("obs", "action", "logp", "value", "legal")
+
+    def replay(obs, mb_h0, mb_masks):
+        """(logits (T*envs, A), values (T*envs,)) of the minibatch."""
+        if split_fns is not None:
+            features, core, heads = split_fns
+            feats = features(obs.reshape((T * envs_mb,) + obs.shape[2:]))
+            feats = feats.reshape(T, envs_mb, -1)
+            h, ys = mb_h0, []
+            for t in range(T):
+                y, h = core(feats[t], h, mb_masks[t])
+                ys.append(y)
+            return heads(torch.cat(ys))
+        h, logits, values = mb_h0, [], []
+        for t in range(T):
+            lg, v, h = net(obs[t], h, mb_masks[t])
+            logits.append(lg)
+            values.append(v)
+        return torch.cat(logits), torch.cat(values)
+
+    metrics = []
+    for perm in perms:
+        perm = torch.as_tensor(perm, dtype=torch.int64, device=device)
+        for mb in range(cfg.num_mini_batch):
+            idx = perm[mb * envs_mb:(mb + 1) * envs_mb]
+            part = {k: getattr(rollout, k)[:, idx] for k in fields}
+            batch = Transition(reward=None, done=None, **{
+                k: v.reshape((T * envs_mb,) + v.shape[2:])
+                for k, v in part.items()})
+            optimizer.zero_grad()
+            logits, values = replay(part["obs"].to(torch.float32), h0[idx],
+                                    masks[:, idx])
+            loss, terms = ppo_loss_terms(
+                logits, values, batch, adv[:, idx].reshape(-1),
+                returns[:, idx].reshape(-1), cfg)
             loss.backward()
             optimizer.step()
             metrics.append(torch.stack([t.detach() for t in terms.values()]))

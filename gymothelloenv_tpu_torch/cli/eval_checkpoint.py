@@ -1,13 +1,19 @@
 """Evaluate a saved PPO policy checkpoint — the port of
-``cli/eval_checkpoint.py`` for feed-forward msgpack checkpoints: the
-checkpoint plays a scripted opponent (``rand | greedy | maximin-<k>``) or
-another checkpoint (``ckpt:<path>`` or ``*.msgpack``, head to head), half
-the games on each colour (``train/tournament.evaluate``), with
+``cli/eval_checkpoint.py`` for msgpack checkpoints, feed-forward,
+recurrent (GRU) or frame-stacked: the checkpoint plays a scripted opponent
+(``rand | greedy | maximin-<k>``) or another checkpoint (``ckpt:<path>``
+or ``*.msgpack``, head to head), half the games on each colour, with
 ``--init-rand-steps`` random opening plies.  It samples from its policy,
 or with ``--lookahead`` plays the value-lookahead search
 (``train/ppo_trainer.net_lookahead_policy``: ``--lookahead-depth`` 1, 2
 or 3, the last a beam of ``--beam-k``); ``--opp-lookahead-depth`` gives a
-checkpoint opponent the search too.  The search scores children on the
+checkpoint opponent the search too.  A recurrent or frame-stacked side
+threads its state through ``train/ppo_trainer.play_games_recurrent``
+(a feed-forward protagonist against such an opponent swaps the roles, as
+JAX does), and its search is depth 1 only
+(``net_lookahead_cell_recurrent``); those games run in segments that fit
+half the card's free memory, each segment's states starting at zero, so
+the segments change no game.  The search scores children on the
 training reward scale (disk differences) while the games keep the
 default rules.  Games run on ``--device`` (default ``cuda``).
 
@@ -29,8 +35,10 @@ import torch
 
 from gymothelloenv_tpu_torch.cli.tournament import policy_from_spec
 from gymothelloenv_tpu_torch.core.state import EnvConfig
-from gymothelloenv_tpu_torch.train.ppo_trainer import (load_eval_policy,
-                                                       net_lookahead_policy)
+from gymothelloenv_tpu_torch.policies import scripted
+from gymothelloenv_tpu_torch.train.ppo_trainer import (
+    load_eval_policy, net_lookahead_cell_recurrent, net_lookahead_policy,
+    net_sampling_cell, play_games_recurrent, rec_lookahead_game_bytes)
 from gymothelloenv_tpu_torch.train.tournament import (evaluate,
                                                       net_tournament_policy)
 from gymothelloenv_tpu_torch.utils.device import resolve_device
@@ -101,32 +109,90 @@ def main(argv=None):
                      "(ckpt:<path> / *.msgpack / *.pth)")
     net, desc = load_eval_policy(args.load, cfg, device)
     print(f"loaded {args.load} ({desc})", flush=True)
+    recurrent = getattr(net, "recurrent", False)
+    opp_net, opp_recurrent = None, False
+    opp_la = args.opp_lookahead_depth
     if opp_is_ckpt:
         path = spec.removeprefix("ckpt:")
         opp_net, opp_desc = load_eval_policy(path, cfg, device)
         print(f"opponent checkpoint {path} ({opp_desc})", flush=True)
-        opp = (net_lookahead_policy(opp_net, search_cfg,
-                                    args.opp_lookahead_depth, args.beam_k,
-                                    args.expand_chunk)
-               if args.opp_lookahead_depth else
-               net_tournament_policy(opp_net))
-    else:
+        opp_recurrent = getattr(opp_net, "recurrent", False)
+    if opp_la and opp_recurrent and opp_la != 1:
+        parser.error("recurrent opponents support lookahead depth 1 only")
+    # The stateless sides: a tournament policy each.
+    opp = act = None
+    if opp_net is None:
         opp = policy_from_spec(spec, args.expand_chunk)
-    act = (net_lookahead_policy(net, search_cfg, args.lookahead_depth,
-                                args.beam_k, args.expand_chunk)
-           if args.lookahead else net_tournament_policy(net))
+    elif not opp_recurrent:
+        opp = (net_lookahead_policy(opp_net, search_cfg, opp_la,
+                                    args.beam_k, args.expand_chunk)
+               if opp_la else net_tournament_policy(opp_net))
+    if not recurrent:
+        act = (net_lookahead_policy(net, search_cfg, args.lookahead_depth,
+                                    args.beam_k, args.expand_chunk)
+               if args.lookahead else net_tournament_policy(net))
     n = args.games // 2
     generator = torch.Generator(device).manual_seed(args.seed)
     t0 = time.time()
-    wins, draws, losses = evaluate(act, opp, 2 * n,
-                                   args.init_rand_steps,
-                                   generator=generator, cfg=cfg,
-                                   device=device)
+    if recurrent or opp_recurrent:
+        wins, draws = _play_stateful(args, cfg, search_cfg, net, opp_net,
+                                     act, opp, n, generator, device)
+        losses = 2 * n - wins - draws
+    else:
+        wins, draws, losses = evaluate(act, opp, 2 * n,
+                                       args.init_rand_steps,
+                                       generator=generator, cfg=cfg,
+                                       device=device)
     print(f"checkpoint vs {args.opponent}: {wins} / {draws} / {losses} "
           f"(W/D/L over {2 * n} games, half each color)  "
           f"win%={wins / (2 * n):.3f}  [{time.time() - t0:.1f}s]",
           flush=True)
     return wins, draws, losses
+
+
+def _play_stateful(args, cfg, search_cfg, net, opp_net, act, opp, n,
+                   generator, device):
+    """``n`` games on each colour where a side threads state (JAX
+    eval_checkpoint.py:150-210): a recurrent protagonist, raw or with the
+    depth-1 lookahead, against a tournament policy or a recurrent
+    opponent (raw or armed at depth 1); or a feed-forward protagonist
+    against a recurrent opponent, with the roles swapped.  The games run
+    in segments that fit half the card's free memory when a recurrent
+    lookahead expands inside the game loop.  Returns ``(wins, draws)`` of
+    the protagonist."""
+    if getattr(net, "recurrent", False):
+        stateful, other, sign = net, opp, 1
+        cell = (net_lookahead_cell_recurrent(net, search_cfg,
+                                             args.lookahead_depth)
+                if args.lookahead else None)
+        opp_cell = None
+        if getattr(opp_net, "recurrent", False):
+            opp_cell = (net_lookahead_cell_recurrent(opp_net, search_cfg)
+                        if args.opp_lookahead_depth else
+                        net_sampling_cell(opp_net))
+    else:
+        stateful, other, sign, opp_cell = opp_net, act, -1, None
+        cell = (net_lookahead_cell_recurrent(opp_net, search_cfg)
+                if args.opp_lookahead_depth else None)
+    per_game = rec_lookahead_game_bytes(stateful) if cell else 0
+    if opp_cell is not None and args.opp_lookahead_depth:
+        per_game += rec_lookahead_game_bytes(opp_net)
+    seg = (n if not per_game else
+           max(1, scripted.memory_budget(resolve_device(device)) // per_game))
+    wins = draws = 0
+    left = n
+    while left > 0:
+        n_seg = min(seg, left)
+        # The protagonist on black, then on white.
+        black, white = (play_games_recurrent(
+            cfg, stateful, other, n_seg, sign * color, args.init_rand_steps,
+            stateful.hidden_size, act_cell=cell, opp_cell=opp_cell,
+            opp_hidden_size=opp_net.hidden_size if opp_cell else 0,
+            generator=generator, device=device) for color in (-1, 1))
+        wins += int((black == -1).sum()) + int((white == 1).sum())
+        draws += int((black == 0).sum()) + int((white == 0).sum())
+        left -= n_seg
+    return wins, draws
 
 
 if __name__ == "__main__":

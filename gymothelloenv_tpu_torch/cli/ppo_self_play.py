@@ -1,11 +1,12 @@
-"""PPO self-play training CLI — the port of ``cli/ppo_self_play.py`` for
-the flags of the feed-forward self-play path (mirror or opponent pool,
-checkpoints, chained updates, random openings, lookahead collection and
-distillation), plus ``--device``.  A flag of the JAX CLI
-that is not ported yet is an argparse error.  The net computes in float32
-with TF32 off (``utils.device.use_float32``), and the first printed line
-says so.  Checkpoints are the JAX CLI's files (flax msgpack), so
-``--load`` resumes a run of either.
+"""PPO self-play training CLI — the port of ``cli/ppo_self_play.py``:
+mirror or opponent-pool self-play, checkpoints, chained updates, random
+openings, lookahead collection and distillation, recurrent (GRU),
+frame-stacked and time-limited PPO and ``--bf16``, plus ``--device``.  A
+flag of the JAX CLI that is not ported yet is an argparse error.  The net
+computes in float32 with TF32 off (``utils.device.use_float32``), or with
+``--bf16`` in bfloat16 with float32 parameters and TF32 still off for the
+float32 parts; the first printed line says which.  Checkpoints are the
+JAX CLI's files (flax msgpack), so ``--load`` resumes a run of either.
 
 Usage:
     python -m gymothelloenv_tpu_torch.cli.ppo_self_play --num-updates 1000 \
@@ -15,6 +16,9 @@ Usage:
         --num-envs 512 --width-mult 2 --hidden-size 1024 \
         --lookahead-collect --lookahead-tau 1.0 --lookahead-mix 0.25 \
         --init-rand-steps 10 --ppo-epochs 2 --lr 5e-5 --no-linear-lr-decay
+    python -m gymothelloenv_tpu_torch.cli.ppo_self_play --recurrent \
+        --width-mult 2 --num-envs 1024 --num-steps 32 --lr 2.5e-4 \
+        --entropy-coef 0.01 --checkpoint data/selfplay/ppo_rec_{step}.msgpack
     python -m gymothelloenv_tpu_torch.cli.ppo_self_play --device cpu \
         --num-envs 16 --num-steps 8 --num-updates 2 --hidden-size 32
 """
@@ -88,6 +92,24 @@ def build_parser() -> argparse.ArgumentParser:
                         help="updates per training iteration: eval/save "
                              "cadence quantizes to K and the run length "
                              "rounds UP to a multiple of K")
+    parser.add_argument("--recurrent", action="store_true",
+                        help="GRU-recurrent policy (model.py:230-285 "
+                             "rebuilt; hidden state threaded through "
+                             "collection, env-subset minibatches — "
+                             "num-envs must divide by num-mini-batch)")
+    parser.add_argument("--frame-stack", type=int, default=1,
+                        help="stack the last K observations over "
+                             "channels (VecPyTorchFrameStack, vendored "
+                             "envs.py:210-250); 1 = off.  Rides the "
+                             "recurrent machinery — num-envs must "
+                             "divide by num-mini-batch")
+    parser.add_argument("--max-episode-plies", type=int, default=0,
+                        help="truncate episodes after this many "
+                             "protagonist decisions with proper-time-"
+                             "limit GAE (TimeLimitMask + storage.py "
+                             "bad_masks semantics); 0 = off")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 net compute (params stay fp32)")
     parser.add_argument("--lookahead-collect", action="store_true",
                         help="search-bootstrapped training: the "
                              "protagonist ACTS with the 1-ply value "
@@ -133,8 +155,13 @@ def main(argv=None):
         chain_updates=args.chain_updates,
         lookahead_collect=args.lookahead_collect,
         lookahead_tau=args.lookahead_tau,
-        lookahead_mix=args.lookahead_mix)
+        lookahead_mix=args.lookahead_mix, recurrent=args.recurrent,
+        frame_stack=args.frame_stack,
+        max_episode_plies=args.max_episode_plies, bf16=args.bf16)
     precision = use_float32()
+    if args.bf16:
+        precision = ("bfloat16 net compute, float32 parameters; TF32 off "
+                     "for matmul and cuDNN in the float32 parts")
     logger = MetricsLogger(args.log_dir) if args.log_dir else None
     try:
         trainer = PPOSelfPlayTrainer(

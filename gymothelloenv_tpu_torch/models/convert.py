@@ -1,7 +1,8 @@
 """Carry ``PolicyNet`` weights between flax's param tree and the port.
 
 The flax tree has numpy leaves (``ConvTrunk_0/Conv_{0,1,2}``, ``Dense_0``
-fc, ``Dense_1`` value, ``Dense_2`` logits), with or without the outer
+fc, ``Dense_1`` value, ``Dense_2`` logits, and for a recurrent net
+``GRUCore_0/GRUCell_0/{ir,iz,in,hr,hz,hn}``), with or without the outer
 ``{"params": ...}`` level.  Conv kernels are HWIO in flax and OIHW here;
 Dense kernels are ``(in, out)`` in flax and ``(out, in)`` here; the
 trunk's NHWC flatten keeps the fc weights in JAX's row order.  The same
@@ -17,11 +18,14 @@ import torch
 from gymothelloenv_tpu_torch.models.nets import PolicyNet
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
+_GRU = ("GRUCore_0", "GRUCell_0")
 _MODULES = {"trunk.conv0": ("ConvTrunk_0", "Conv_0"),
             "trunk.conv1": ("ConvTrunk_0", "Conv_1"),
             "trunk.conv2": ("ConvTrunk_0", "Conv_2"),
             "fc": ("Dense_0",), "value": ("Dense_1",),
-            "logits": ("Dense_2",)}
+            "logits": ("Dense_2",),
+            **{f"gru.{leaf}": _GRU + (leaf.rstrip("_"),)
+               for leaf in ("ir", "iz", "in_", "hr", "hz", "hn")}}
 _LEAVES = {"weight": "kernel", "bias": "bias"}
 
 
@@ -91,7 +95,8 @@ def tensors_from_flax(net: PolicyNet, tree) -> list:
     extra = ["/".join(path) for path, _ in flax_leaves(p)
              if path not in seen]
     if extra:
-        raise ValueError(f"flax tree leaves the feed-forward PolicyNet does "
+        kind = "recurrent" if net.recurrent else "feed-forward"
+        raise ValueError(f"flax tree leaves the {kind} PolicyNet does "
                          f"not have: {extra[:3]}")
     return out
 
@@ -115,10 +120,31 @@ def load_flax_params(net: PolicyNet, params) -> PolicyNet:
     return net
 
 
-def policy_net_from_flax(params, width_mult: int, hidden_size: int,
-                         device=None) -> PolicyNet:
+def architecture(params) -> dict:
+    """``PolicyNet``'s capacity from a flax tree's stored shapes, as JAX's
+    ``load_eval_policy`` infers it (ppo_trainer.py:352-358):
+    ``width_mult``, ``hidden_size``, ``recurrent`` (a ``GRUCore_0``) and
+    ``frame_stack`` (``Conv_0``'s input channels over 4)."""
+    p = params.get("params", params)
+    conv0 = np.shape(p["ConvTrunk_0"]["Conv_0"]["kernel"])
+    return dict(width_mult=int(conv0[-1]) // 32,
+                hidden_size=int(np.shape(p["Dense_0"]["kernel"])[-1]),
+                recurrent="GRUCore_0" in p,
+                frame_stack=int(conv0[-2]) // 4)
+
+
+def policy_net_from_flax(params, width_mult: int | None = None,
+                         hidden_size: int | None = None, device=None,
+                         dtype: torch.dtype = torch.float32) -> PolicyNet:
     """Build the port's ``PolicyNet`` from a flax ``PolicyNet`` param tree
-    (feed-forward, ``conv`` trunk)."""
+    (``conv`` trunk): recurrent where the tree has a ``GRUCore_0``, with
+    ``4 x frame_stack`` input channels as ``Conv_0`` stores them.
+    ``width_mult`` and ``hidden_size`` default to the stored ones; given,
+    a tree of another capacity raises ``ValueError``."""
     device = resolve_device(device)
-    net = PolicyNet(hidden_size=hidden_size, width_mult=width_mult)
+    arch = architecture(params)
+    net = PolicyNet(hidden_size=hidden_size or arch["hidden_size"],
+                    width_mult=width_mult or arch["width_mult"],
+                    recurrent=arch["recurrent"],
+                    in_channels=4 * arch["frame_stack"], dtype=dtype)
     return load_flax_params(net.to(device), params).eval()

@@ -57,7 +57,9 @@ def greedy_policy(state: bb.BitState,
     return _ENGINE.greedy(state)
 
 
-def _budget(device: torch.device) -> int:
+def memory_budget(device: torch.device) -> int:
+    """Bytes a search may take: half the card's free memory
+    (``torch.cuda.mem_get_info``), or 1 GiB on the CPU."""
     if device.type == "cuda":
         free, _ = torch.cuda.mem_get_info(device)
         return int(free * _FREE_SHARE)
@@ -145,7 +147,7 @@ def chunked(search, state: bb.BitState, expand_chunk: int = 0):
         parts = [search(bb.index_state(state, slice(i, i + expand_chunk)),
                         None) for i in range(0, n, expand_chunk)]
     else:
-        budget = _budget(state.turn.device)
+        budget = memory_budget(state.turn.device)
         done, todo = [], [(0, n)]
         while todo:
             lo, hi = todo.pop()

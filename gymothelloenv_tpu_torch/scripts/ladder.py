@@ -12,7 +12,8 @@ eval_checkpoint --load <ckpt> --opponent <opp> [<flags>] --games <games>
 seconds, the JAX figure, z and the two-sided p-value, and whether p is at
 or above ``ALPHA``.  Seeded JAX and torch streams never agree, so the check
 is statistical.  On a card it first prints the card's name and power limit
-(nvidia-smi).  Reads four checkpoints under ``data/selfplay/``.
+(nvidia-smi).  Reads five checkpoints under ``data/selfplay/``, two of
+them recurrent (GRU).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from gymothelloenv_tpu_torch.cli import eval_checkpoint
 WIDE2_4K = "data/selfplay/ppo_wide2_4k.msgpack"
 LAMIX = "data/selfplay/ppo_wide2_lamix25s17_1000.msgpack"
 LA3500 = "data/selfplay/ppo_wide2_la_3500.msgpack"
+REC2000 = "data/selfplay/ppo_recurrent_2000.msgpack"
+REC_WIDE2 = "data/selfplay/ppo_rec_wide2_2500.msgpack"
 # (checkpoint, opponent, eval_checkpoint flags, JAX wins, JAX games, where
 # RESULTS.md says so)
 CELLS = ((WIDE2_4K, "maximin-2", (), 291, 400, "RESULTS.md:235"),
@@ -43,7 +46,13 @@ CELLS = ((WIDE2_4K, "maximin-2", (), 291, 400, "RESULTS.md:235"),
           993, 1000, "RESULTS.md:1016"),
          (LA3500, f"ckpt:{WIDE2_4K}",
           ("--lookahead", "--opp-lookahead-depth", "1"), 891, 1000,
-          "RESULTS.md:794-796"))
+          "RESULTS.md:794-796"),
+         (REC2000, "maximin-2", (), 289, 400,
+          "RESULTS.md:288-290, data/logs/queue/06_eval_recurrent.log:3"),
+         (REC_WIDE2, "maximin-2", (), 271, 400,
+          "RESULTS.md:172-174, data/logs/queue/11_recurrent_wide2.log:318"),
+         # 28.5% of 400 games (the league table gives the rate only).
+         (LA3500, f"ckpt:{REC2000}", (), 114, 400, "RESULTS.md:674"))
 ALPHA = 0.01
 
 

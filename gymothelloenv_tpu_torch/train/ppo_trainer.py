@@ -1,13 +1,16 @@
 """PPO self-play trainer — the port of ``train/ppo_trainer.py``
 (``SelfPlayConfig``, ``make_network``, ``PPOSelfPlayTrainer``,
-``load_eval_policy``, ``net_lookahead_policy``) for the feed-forward
-self-play path: mirror self-play, or an opponent pool of frozen snapshots
+``load_eval_policy``, ``net_lookahead_policy``, ``play_games_recurrent``
+and its cells): mirror self-play, or an opponent pool of frozen snapshots
 and anchor checkpoints; random openings; the lookahead override in
-collection, on a ``lookahead_mix`` share of updates; and the eval-time
-value-lookahead search (depths 1 and 2 and a depth-3 beam).
+collection, on a ``lookahead_mix`` share of updates; recurrent (GRU),
+frame-stacked and time-limited PPO; a net computed in bfloat16; and the
+eval-time value-lookahead search (depths 1 and 2 and a depth-3 beam, and
+depth 1 for a recurrent or frame-stacked net).
 
 One update collects ``num_steps`` slots from ``num_envs`` games
-(``train/self_play.py``) and runs ``agents/ppo.ppo_update`` on them; every
+(``train/self_play.py``) and runs ``agents/ppo.ppo_update`` (or
+``ppo_update_recurrent``) on them; every
 ``test_interval`` updates the net plays random and greedy, half the games
 per colour (``train/tournament.evaluate``); every ``save_interval`` updates
 ``train`` writes a checkpoint.  Checkpoints are the JAX trainer's files
@@ -18,7 +21,8 @@ other's run.
 
 Randomness: a generator on the training device for the collector's
 colours and samples and for the evaluation games, a CPU generator for
-each update's shuffle key words, both seeded from ``SelfPlayConfig.seed``,
+each update's shuffle key words (the recurrent update's env
+permutations), both seeded from ``SelfPlayConfig.seed``,
 and ``random.Random(seed)`` for the opponent draws (as the JAX trainer).
 """
 
@@ -35,14 +39,20 @@ import numpy as np
 import torch
 
 from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, make_optimizer,
-                                                ppo_update)
+                                                ppo_update,
+                                                ppo_update_recurrent)
+from gymothelloenv_tpu_torch.core.engine import BitEngine
+from gymothelloenv_tpu_torch.core.featurize import make_state
 from gymothelloenv_tpu_torch.core.state import EnvConfig
-from gymothelloenv_tpu_torch.models.convert import (flax_leaves, flax_tree,
+from gymothelloenv_tpu_torch.models.convert import (architecture,
+                                                    flax_leaves, flax_tree,
                                                     load_flax_params,
                                                     policy_net_from_flax,
                                                     tensors_from_flax)
 from gymothelloenv_tpu_torch.core import bitboard as bb
-from gymothelloenv_tpu_torch.models.nets import PolicyNet
+from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
+from gymothelloenv_tpu_torch.models.nets import (FrameStackCell, PolicyNet,
+                                                 params_net)
 from gymothelloenv_tpu_torch.ops.shuffle import draw_words
 from gymothelloenv_tpu_torch.policies import scripted
 from gymothelloenv_tpu_torch.policies.scripted import (expand_legal,
@@ -50,8 +60,9 @@ from gymothelloenv_tpu_torch.policies.scripted import (expand_legal,
                                                        random_policy)
 from gymothelloenv_tpu_torch.train import tournament
 from gymothelloenv_tpu_torch.train.self_play import (
-    LEAF_SLICE, NEG, Draws, collect_rollout, make_lookahead_override,
-    node_values, selfplay_init)
+    LEAF_SLICE, NEG, Draws, collect_rollout, collect_rollout_recurrent,
+    collect_rollout_time_limited, make_lookahead_override, node_values,
+    selfplay_init, selfplay_init_recurrent)
 from gymothelloenv_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
 from gymothelloenv_tpu_torch.utils.device import (resolve_device,
@@ -100,57 +111,200 @@ class SelfPlayConfig:
     # by a Bresenham accumulator (0.25: updates 4, 8, ...; 0.5 alternates
     # strictly).  Only with lookahead_collect.
     lookahead_mix: float = 1.0
-    # Features of the JAX trainer that are not ported yet (ROADMAP.md):
-    # any value other than the default raises in PPOSelfPlayTrainer.
+    # bfloat16 net compute; the params stay float32 (models/nets.py).
     bf16: bool = False
+    # GRU-recurrent policy (model.py:230-285): the hidden state threads
+    # through collection, and the update's minibatches are env subsets,
+    # so num_envs must divide by PPOConfig.num_mini_batch.
     recurrent: bool = False
+    # Channel frame stacking (VecPyTorchFrameStack, envs.py:210-250): the
+    # net sees the last K observations over its channels, newest last,
+    # zeroed at episode starts; it rides the recurrent machinery as a
+    # cell whose state holds the previous K-1 frames.  1 = off; exclusive
+    # with ``recurrent``.
     frame_stack: int = 1
+    # Episode step cap (TimeLimit + TimeLimitMask, envs.py:110-119 +
+    # storage.py:79-96): episodes are truncated after this many
+    # protagonist decisions, and GAE zeroes the truncated advantages.
+    # 0 = off.  Feed-forward only.
     max_episode_plies: int = 0
 
 
-_UNPORTED = ("bf16", "recurrent", "frame_stack", "max_episode_plies")
-
-
 def make_network(cfg: EnvConfig, hidden_size: int = 512,
-                 width_mult: int = 1, seed: int = 0,
-                 device=None) -> PolicyNet:
-    """A seeded orthogonal init of the feed-forward ``PolicyNet``."""
+                 width_mult: int = 1, seed: int = 0, device=None,
+                 recurrent: bool = False, bf16: bool = False,
+                 frame_stack: int = 1) -> PolicyNet:
+    """A seeded orthogonal init of ``PolicyNet``: recurrent or not,
+    computing in bfloat16 or float32, with ``4 * frame_stack`` input
+    channels."""
     net = PolicyNet(num_actions=cfg.num_actions, hidden_size=hidden_size,
-                    width_mult=width_mult, board_size=cfg.board_size)
+                    width_mult=width_mult, board_size=cfg.board_size,
+                    recurrent=recurrent, in_channels=4 * frame_stack,
+                    dtype=torch.bfloat16 if bf16 else torch.float32)
     net.reset_parameters(torch.Generator().manual_seed(seed))
     return net.to(resolve_device(device))
 
 
+def make_split_fns(net: PolicyNet) -> tuple:
+    """``(features, core, heads)`` of a recurrent ``PolicyNet``, for
+    ``ppo_update_recurrent``'s batched trunk."""
+    return net.features, net.core, net.heads
+
+
 def load_eval_policy(path: str, cfg: EnvConfig = EnvConfig(), device=None):
     """Load a policy checkpoint for evaluation (JAX ppo_trainer.py:
-    334-392, the feed-forward msgpack case): ``width_mult`` and
-    ``hidden_size`` come from the stored shapes.  Returns ``(net,
-    description)``, the description as JAX writes it (``"step 4000,
-    width_mult=2, hidden=1024"``).  ``cfg``: the board the net plays
-    (8x8 in the port)."""
+    334-392): ``width_mult``, ``hidden_size``, a GRU core and the frame
+    stack come from the stored shapes.  Returns ``(policy,
+    description)``, the description as JAX writes it (``"step 2500,
+    width_mult=2, hidden=512, recurrent"``): a ``PolicyNet`` (a recurrent
+    one takes ``(obs, h, mask)``), or for a frame-stacked net its
+    ``FrameStackCell``.  A policy that threads state has ``recurrent``
+    True and its state width in ``hidden_size``.  ``cfg``: the board the
+    net plays (8x8 in the port)."""
     if path.endswith((".pth", ".pt")):
         raise NotImplementedError(
             "reference torch checkpoints (.pth/.pt) are not ported yet "
             "(ROADMAP.md queue 1 item 12, the compat layer)")
-    step, raw, _, _ = load_checkpoint(path)
-    p = raw["params"]
-    trunk = p["ConvTrunk_0"]
-    if "GRUCore_0" in p:
-        raise NotImplementedError(
-            f"{path}: recurrent checkpoints (GRUCore_0) are not ported yet "
-            "(ROADMAP.md queue 1 item 7)")
-    frame_stack = int(trunk["Conv_0"]["kernel"].shape[-2]) // 4
-    if frame_stack > 1:
-        raise NotImplementedError(
-            f"{path}: frame-stacked checkpoints (frame_stack="
-            f"{frame_stack}) are not ported yet (ROADMAP.md queue 1 item 7)")
-    width_mult = int(trunk["Conv_0"]["kernel"].shape[-1]) // 32
-    hidden_size = int(p["Dense_0"]["kernel"].shape[-1])
     del cfg     # 8x8 only; the stored shapes fix the 64 actions
-    net = policy_net_from_flax(raw, width_mult, hidden_size, device)
-    extra = ("" if width_mult == 1 and hidden_size == 512 else
-             f", width_mult={width_mult}, hidden={hidden_size}")
-    return net, f"step {step}{extra}"
+    step, raw, _, _ = load_checkpoint(path)
+    arch = architecture(raw)
+    net = policy_net_from_flax(raw, device=device)
+    stack = arch["frame_stack"]
+    policy = (FrameStackCell(net, stack)
+              if stack > 1 and not arch["recurrent"] else net)
+    extra = ("" if arch["width_mult"] == 1 and arch["hidden_size"] == 512
+             else f", width_mult={arch['width_mult']}, "
+                  f"hidden={arch['hidden_size']}")
+    extra += ", recurrent" if arch["recurrent"] else ""
+    extra += f", frame_stack={stack}" if stack > 1 else ""
+    return policy, f"step {step}{extra}"
+
+
+def net_sampling_cell(net: torch.nn.Module):
+    """A stateful policy as a batched sampling actor ``cell(states, h,
+    draws) -> (actions, h')`` (JAX ``net_sampling_cell``): the state
+    advances on the observations, and each game samples its masked
+    logits with one uniform from ``draws``."""
+    def cell(states: bb.BitState, h: torch.Tensor, draws):
+        with torch.inference_mode():
+            logits, _, h_new = net(make_state(states), h,
+                                   torch.ones(h.shape[0], device=h.device))
+            dist = MaskedCategorical(logits=logits,
+                                     mask=bb.unpack_flat(states.legal))
+            u = draws.uniforms(h.shape[0], h.device)
+            return dist.sample(u=u), h_new
+    return cell
+
+
+@torch.no_grad()
+def lookahead_recurrent(net: torch.nn.Module, states: bb.BitState,
+                        h: torch.Tensor, cfg: EnvConfig):
+    """The recurrent depth-1 lookahead on a batch of games (JAX
+    ``net_lookahead_cell_recurrent``'s cell).  The state first consumes
+    the current observation (``h_cur``); each legal child (one
+    ``expand_legal``, one ply-kernel launch) is scored by one step of
+    ``net`` from ``h_cur`` over the child's observation, a terminal child
+    by its true reward, negated where the turn passes.  Returns
+    ``(action, scores, margin, h_cur)``: the argmax of the legal values
+    (the first maximum; action 0 without a legal move), the (N, 64)
+    values (``NEG`` where illegal), the best value over the second
+    (``inf`` without a second) and the state to carry."""
+    n = h.shape[0]
+    ones = torch.ones(n, device=h.device)
+    _, _, h_cur = net(make_state(states), h, ones)
+    parent, action, child, reward = expand_legal(states, states.legal, cfg)
+    _, v, _ = net(make_state(child), h_cur[parent], ones[parent])
+    mover_v = torch.where(child.turn == states.turn[parent], v, -v)
+    vals = torch.where(child.terminated, reward, mover_v)
+    scores = torch.full((n, 64), NEG, dtype=vals.dtype, device=h.device)
+    scores[parent, action] = vals
+    top = scores.topk(2, dim=1).values
+    margin = torch.where(top[:, 1] > NEG, top[:, 0] - top[:, 1],
+                         torch.full_like(top[:, 0], float("inf")))
+    return torch.argmax(scores, dim=1), scores, margin, h_cur
+
+
+def net_lookahead_cell_recurrent(net: torch.nn.Module, cfg: EnvConfig,
+                                 depth: int = 1):
+    """``lookahead_recurrent`` as a stateful actor ``cell(states, h,
+    draws) -> (actions, h_cur)``: the carried state advances to
+    ``h_cur``, never to a child's.  ``cfg`` carries the training reward
+    scale.  Depth 1 only, as in JAX."""
+    if depth != 1:
+        raise NotImplementedError(
+            "recurrent lookahead supports depth 1 only (depth-2 would "
+            "thread A^2 speculative hiddens per game)")
+    use_float32()
+
+    def cell(states: bb.BitState, h: torch.Tensor, draws=None):
+        del draws
+        action, _, _, h_cur = lookahead_recurrent(net, states, h, cfg)
+        return action, h_cur
+    return cell
+
+
+def rec_lookahead_game_bytes(net: torch.nn.Module) -> int:
+    """Device bytes one game of the recurrent lookahead takes: 34 children
+    (no position has more than 33 legal moves), each a node, its board's
+    forward and ~8 rows of state (the state and the GRU's gates)."""
+    state = 4 * 8 * net.hidden_size
+    return 34 * (scripted.NODE_BYTES + _board_bytes(params_net(net)) + state)
+
+
+_ENGINE = BitEngine()
+
+
+def play_games_recurrent(cfg: EnvConfig, net: torch.nn.Module, opp_policy,
+                         num_games: int, net_color: int,
+                         init_rand_steps: int = 0, hidden_size: int = 512,
+                         act_cell=None, opp_cell=None,
+                         opp_hidden_size: int = 0, draws=None,
+                         generator: torch.Generator | None = None,
+                         device=None) -> torch.Tensor:
+    """Evaluation games of a stateful ``net`` (JAX
+    ``play_games_recurrent``) on ``net_color`` against ``opp_policy``, a
+    tournament policy ``(state, generator) -> actions``, or with
+    ``opp_cell`` a second stateful actor with its own ``opp_hidden_size``
+    state.  Returns winners int8 (N,).
+
+    The games step in lockstep, one ``BitEngine.step_where`` (one
+    ply-kernel launch) a ply, for at most 64 plies.  The net's state
+    advances on every live ply where it is the net's turn, random-opening
+    plies included (the collector advances ``h_prot`` on every
+    protagonist decision); the opponent's on its own live turns.
+    ``act_cell``: a stateful actor ``(states, h, draws) -> (actions, h')``
+    in place of the sampling cell (the recurrent lookahead).  ``draws``
+    (``train.self_play.Draws`` over ``generator`` by default) gives the
+    random-opening counts, each ply's random legal move and the sampling
+    uniforms; a tournament opponent samples from ``generator``."""
+    device = resolve_device(device)
+    if draws is None:
+        draws = Draws(generator)
+    states = bb.bit_reset(num_games, device)
+    rand_left = draws.rand_left(num_games, init_rand_steps, device)
+    h = torch.zeros(num_games, hidden_size, device=device)
+    h_opp = torch.zeros(num_games, opp_hidden_size, device=device)
+    cell = act_cell if act_cell is not None else net_sampling_cell(net)
+    ply = 0
+    while ply < cfg.num_actions and not bool(states.terminated.all()):
+        a_net, h_new = cell(states, h, draws)
+        if opp_cell is None:
+            a_opp, h_opp_new = opp_policy(states, generator), h_opp
+        else:
+            a_opp, h_opp_new = opp_cell(states, h_opp, draws)
+        a_rand = bb.random_legal_bit(
+            states.legal, draws.legal_index(bb.popcount(states.legal)))
+        net_turn = states.turn == net_color
+        action = torch.where(rand_left > 0, a_rand,
+                             torch.where(net_turn, a_net, a_opp))
+        live = ~states.terminated
+        h = torch.where((net_turn & live)[:, None], h_new, h)
+        h_opp = torch.where((~net_turn & live)[:, None], h_opp_new, h_opp)
+        states = _ENGINE.step_where(states, action, live, cfg)
+        rand_left = torch.where(live, (rand_left - 1).clamp(min=0),
+                                rand_left)
+        ply += 1
+    return states.winner
 
 
 # Device bytes a search node keeps for the backup (parent, move, turn,
@@ -371,15 +525,37 @@ class PPOSelfPlayTrainer:
         if mesh is not None:
             raise NotImplementedError("multi-device training (mesh) is not "
                                       "ported yet")
-        default = SelfPlayConfig()
         run = self.run_cfg
-        # JAX's guards and wording (ppo_trainer.py:593-596, :719-726).
-        if run.lookahead_collect and (
-                run.recurrent or run.frame_stack > 1
-                or run.max_episode_plies > 0):
+        # JAX's guards and wording (ppo_trainer.py:573-601, :710-726).
+        if run.opponent_pool > 0 and run.pool_interval < 1:
+            raise ValueError(
+                f"pool_interval must be >= 1 when opponent_pool is on "
+                f"(got {run.pool_interval})")
+        if run.pool_anchors and run.opponent_pool <= 0:
+            raise ValueError("pool_anchors requires opponent_pool > 0 "
+                             "(anchors join the snapshot pool's draw)")
+        stacked = run.frame_stack > 1
+        if run.recurrent and stacked:
+            raise ValueError("recurrent and frame_stack are mutually "
+                             "exclusive (both thread policy state)")
+        # Both paths ride the recurrent collector and update.
+        self._rec_like = run.recurrent or stacked
+        self._time_limited = run.max_episode_plies > 0
+        if self._time_limited and self._rec_like:
+            raise ValueError("max_episode_plies is feed-forward only")
+        if run.lookahead_collect and (self._rec_like or self._time_limited):
             raise ValueError("lookahead_collect needs the plain "
                              "feed-forward collector (no recurrent/"
                              "frame-stack/max_episode_plies)")
+        if self._rec_like and run.num_envs % self.ppo_cfg.num_mini_batch:
+            raise ValueError(
+                f"recurrent/frame-stack PPO needs num_envs "
+                f"({run.num_envs}) divisible by num_mini_batch "
+                f"({self.ppo_cfg.num_mini_batch})")
+        if run.chain_updates > 1 and run.opponent_pool > 0:
+            raise ValueError("chain_updates > 1 is incompatible with "
+                             "opponent_pool (snapshots re-draw per "
+                             "update on host)")
         mix = run.lookahead_mix
         if run.lookahead_collect and not 0.0 < mix <= 1.0:
             raise ValueError(f"lookahead_mix must be in (0, 1], got {mix}")
@@ -388,22 +564,6 @@ class PPOSelfPlayTrainer:
             raise ValueError("lookahead_mix < 1 is incompatible with "
                              "chain_updates > 1 (the chain bakes one "
                              "collection mode)")
-        for name in _UNPORTED:
-            if getattr(self.run_cfg, name) != getattr(default, name):
-                raise NotImplementedError(
-                    f"SelfPlayConfig.{name}={getattr(self.run_cfg, name)!r} "
-                    "is not ported yet (ROADMAP.md)")
-        if run.opponent_pool > 0 and run.pool_interval < 1:
-            raise ValueError(
-                f"pool_interval must be >= 1 when opponent_pool is on "
-                f"(got {run.pool_interval})")
-        if run.pool_anchors and run.opponent_pool <= 0:
-            raise ValueError("pool_anchors requires opponent_pool > 0 "
-                             "(anchors join the snapshot pool's draw)")
-        if run.chain_updates > 1 and run.opponent_pool > 0:
-            raise ValueError("chain_updates > 1 is incompatible with "
-                             "opponent_pool (snapshots re-draw per "
-                             "update on host)")
         self.device = resolve_device(device)
         use_float32()
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -411,7 +571,18 @@ class PPOSelfPlayTrainer:
                                "device='cpu' to train on the CPU")
         seed = run.seed
         self.net = make_network(self.env_cfg, run.hidden_size,
-                                run.width_mult, seed, self.device).train()
+                                run.width_mult, seed, self.device,
+                                recurrent=run.recurrent, bf16=run.bf16,
+                                frame_stack=run.frame_stack).train()
+        # What the collector and the update call: the net, or the
+        # frame-stack cell over it; and the width of its state (0 for a
+        # feed-forward net).
+        self.policy = (FrameStackCell(self.net, run.frame_stack)
+                       if stacked else self.net)
+        self._state_size = (self.policy.hidden_size if self._rec_like
+                            else 0)
+        self._split_fns = (make_split_fns(self.net) if run.recurrent
+                           else None)
         self.optimizer = make_optimizer(self.ppo_cfg, self.net.parameters())
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.shuffle_generator = torch.Generator().manual_seed(seed)
@@ -426,12 +597,14 @@ class PPOSelfPlayTrainer:
         self._pool_rng = pyrandom.Random(seed)
         self.anchors = [self._load_anchor(path) for path in run.pool_anchors]
 
-    def _frozen_copy(self) -> PolicyNet:
-        net = copy.deepcopy(self.net)
-        net.requires_grad_(False)
-        return net
+    def _frozen_copy(self) -> torch.nn.Module:
+        """A frozen copy of the training policy (the net, or its
+        frame-stack cell)."""
+        policy = copy.deepcopy(self.policy)
+        policy.requires_grad_(False)
+        return policy
 
-    def _load_anchor(self, path: str) -> PolicyNet:
+    def _load_anchor(self, path: str) -> torch.nn.Module:
         """A pool anchor: a checkpoint of the training net's architecture
         (JAX ppo_trainer.py:747-770, the same check and error text)."""
         try:
@@ -447,7 +620,9 @@ class PPOSelfPlayTrainer:
             if mismatch:
                 err = f"shape mismatches {mismatch[:3]}"
             else:
-                return load_flax_params(self._frozen_copy(), params)
+                anchor = self._frozen_copy()
+                load_flax_params(params_net(anchor), params)
+                return anchor
         except (OSError, KeyError, TypeError, ValueError) as e:
             err = repr(e)
         raise ValueError(
@@ -464,14 +639,24 @@ class PPOSelfPlayTrainer:
         if self.sp_state is None:
             # With a pool the non-learning colour is a snapshot or an
             # anchor from the very first opponent ply.
-            opp = (self._draw_opponent() if self.run_cfg.opponent_pool > 0
-                   else None)
+            run = self.run_cfg
+            opp = self._draw_opponent() if run.opponent_pool > 0 else None
+            if self._rec_like:
+                self.sp_state = selfplay_init_recurrent(
+                    self.policy, self.env_cfg, run.num_envs,
+                    self._state_size, self.draws, run.init_rand_steps,
+                    opp_net=opp)
+                return
             self.sp_state = selfplay_init(
-                self.net, self.env_cfg, self.run_cfg.num_envs, self.draws,
-                self.run_cfg.init_rand_steps, opp_net=opp,
+                self.net, self.env_cfg, run.num_envs, self.draws,
+                run.init_rand_steps, opp_net=opp,
                 act_override=self._override)
+            if self._time_limited:
+                # The init state's pending decision is ply 1.
+                self.sp_state = (self.sp_state, torch.ones(
+                    run.num_envs, dtype=torch.int32, device=self.device))
 
-    def _draw_opponent(self) -> PolicyNet:
+    def _draw_opponent(self) -> torch.nn.Module:
         """Uniform draw over the anchors and the snapshot ring (JAX
         ppo_trainer.py:854-861); the first draw snapshots the net."""
         if not self.pool:
@@ -506,27 +691,65 @@ class PPOSelfPlayTrainer:
                 self.pool.pop(0)
         return metrics
 
+    def _sp(self):
+        """The collector's ``SelfPlayState`` (the time-limited state pairs
+        it with ``elapsed``)."""
+        return self.sp_state[0] if self._time_limited else self.sp_state
+
     def _collect_and_update(self, opp_net) -> dict:
         """One collection, with the lookahead override where
-        ``_pick_lookahead`` says so, and one PPO update.  Metrics are 0-d
+        ``_pick_lookahead`` says so, and one PPO update: the recurrent
+        collector and update for a recurrent or frame-stacked net, the
+        time-limited collector and proper-time-limit GAE with
+        ``max_episode_plies`` (metric ``truncations``).  Metrics are 0-d
         tensors and floats; ``lookahead`` is 1.0 where the collection used
         the override,
         ``collect_seconds``/``update_seconds`` are host wall times that end
         in a device synchronisation, ``collect_syncs`` the host reads of
         the collector's opponent loop."""
+        run, ppo_cfg = self.run_cfg, self.ppo_cfg
         lookahead = self._pick_lookahead()
-        syncs = self.sp_state.host_syncs
+        syncs = self._sp().host_syncs
         self._sync()
         t0 = time.perf_counter()
-        self.sp_state, rollout, bootstrap = collect_rollout(
-            self.net, self.sp_state, self.env_cfg, self.run_cfg.num_steps,
-            self.draws, self.run_cfg.init_rand_steps, opp_net=opp_net,
-            act_override=self._override if lookahead else None)
-        self._sync()
-        t1 = time.perf_counter()
-        words = draw_words(self.shuffle_generator, self.ppo_cfg.ppo_epochs)
-        metrics = ppo_update(self.net, self.optimizer, rollout, bootstrap,
-                             words, self.ppo_cfg)
+        extra = {}
+        if self._rec_like:
+            self.sp_state, rollout, h0, masks, bootstrap = \
+                collect_rollout_recurrent(
+                    self.policy, self.sp_state, self.env_cfg, run.num_steps,
+                    self.draws, run.init_rand_steps, opp_net=opp_net)
+            self._sync()
+            t1 = time.perf_counter()
+            metrics = ppo_update_recurrent(
+                self.policy, self.optimizer, rollout, h0, masks, bootstrap,
+                ppo_cfg, generator=self.shuffle_generator,
+                split_fns=self._split_fns)
+        elif self._time_limited:
+            sp, elapsed = self.sp_state
+            sp, elapsed, rollout, bad, bootstrap = \
+                collect_rollout_time_limited(
+                    self.net, sp, elapsed, self.env_cfg, run.num_steps,
+                    run.max_episode_plies, self.draws, run.init_rand_steps,
+                    opp_net=opp_net)
+            self.sp_state = (sp, elapsed)
+            self._sync()
+            t1 = time.perf_counter()
+            words = draw_words(self.shuffle_generator, ppo_cfg.ppo_epochs)
+            metrics = ppo_update(self.net, self.optimizer, rollout,
+                                 bootstrap, words, ppo_cfg,
+                                 bad_transition=bad)
+            extra["truncations"] = bad.sum()
+        else:
+            self.sp_state, rollout, bootstrap = collect_rollout(
+                self.net, self.sp_state, self.env_cfg, run.num_steps,
+                self.draws, run.init_rand_steps, opp_net=opp_net,
+                act_override=self._override if lookahead else None)
+            self._sync()
+            t1 = time.perf_counter()
+            words = draw_words(self.shuffle_generator, ppo_cfg.ppo_epochs)
+            metrics = ppo_update(self.net, self.optimizer, rollout,
+                                 bootstrap, words, ppo_cfg)
+        metrics.update(extra)
         episodes = rollout.done.sum()
         metrics["episode_return"] = (rollout.reward.sum()
                                      / episodes.clamp(min=1))
@@ -534,7 +757,7 @@ class PPOSelfPlayTrainer:
         self._sync()
         metrics["collect_seconds"] = t1 - t0
         metrics["update_seconds"] = time.perf_counter() - t1
-        metrics["collect_syncs"] = self.sp_state.host_syncs - syncs
+        metrics["collect_syncs"] = self._sp().host_syncs - syncs
         metrics["lookahead"] = float(lookahead)
         return metrics
 
@@ -584,16 +807,25 @@ class PPOSelfPlayTrainer:
     def evaluate(self) -> dict:
         """Win rates of the sampling net against random and greedy, half
         the games as each colour, with ``test_init_rand_steps`` random
-        opening plies (rule_base_game, ppo_run_self_play.py:371-441)."""
+        opening plies (rule_base_game, ppo_run_self_play.py:371-441); a
+        recurrent or frame-stacked net through ``play_games_recurrent``."""
         n = self.run_cfg.num_test_games // 2
-        act = tournament.net_tournament_policy(self.net)
+        rand_steps = self.run_cfg.test_init_rand_steps
+        act = (None if self._rec_like else
+               tournament.net_tournament_policy(self.net))
         results = {}
         for name, opp in (("rand", random_policy),
                           ("greedy", greedy_policy)):
-            wins, _, _ = tournament.evaluate(
-                act, opp, 2 * n, self.run_cfg.test_init_rand_steps,
-                generator=self.generator, cfg=self.env_cfg,
-                device=self.device)
+            if self._rec_like:
+                black, white = (play_games_recurrent(
+                    self.env_cfg, self.policy, opp, n, color, rand_steps,
+                    self._state_size, generator=self.generator,
+                    device=self.device) for color in (-1, 1))
+                wins = int((black == -1).sum()) + int((white == 1).sum())
+            else:
+                wins, _, _ = tournament.evaluate(
+                    act, opp, 2 * n, rand_steps, generator=self.generator,
+                    cfg=self.env_cfg, device=self.device)
             results[name] = wins / (2 * n)
         return results
 
@@ -614,7 +846,8 @@ class PPOSelfPlayTrainer:
     def load(self, path: str) -> None:
         """Resume from a checkpoint of either trainer: params, Adam state,
         the schedule's position and the update count.  A file of another
-        layout raises before anything changes."""
+        layout (another net, a recurrent tree for a feed-forward net or the
+        reverse) raises before anything changes."""
         step, params, opt_state, _ = load_checkpoint(path)
         tensors = tensors_from_flax(self.net, params)
         self.optimizer.load_optax_state(

@@ -30,6 +30,13 @@ card every ply (``BitEngine.step_where``), the reset of finished games
 (``policies.scripted.expand_legal``) are one launch each of the ply kernel
 (``ops/step.py``).
 
+Also ported: the time-limited collector (``collect_rollout_time_limited``,
+gym's TimeLimit with the fork's TimeLimitMask) and the recurrent one
+(``collect_rollout_recurrent``), which threads each colour's hidden state
+through its decisions for a stateful policy ``net(obs, h, mask) ->
+(logits, value, h')`` (the GRU ``PolicyNet`` or
+``models.nets.FrameStackCell``).
+
 Randomness: one explicit ``torch.Generator`` (``Draws``) gives the colours,
 the random-opening counts, one inverse-CDF uniform per row per sampled ply
 and one legal-move index per row per ply with random openings;
@@ -364,9 +371,214 @@ def collect_rollout(net: torch.nn.Module, sp: SelfPlayState, cfg: EnvConfig,
         env, rand_left, pending = protagonist_act(
             net, env, rand_left, cfg, draws, logp_mode, rand_openings,
             act_override)
-    rollout = Transition(**{
-        f.name: torch.stack([getattr(s, f.name) for s in slots])
-        for f in dataclasses.fields(Transition)})
+    rollout = _stack(slots)
     new = SelfPlayState(env=env, rand_left=rand_left, pcolor=pcolor,
                         pending=pending, host_syncs=syncs)
     return new, rollout, pending.value
+
+
+@torch.no_grad()
+def collect_rollout_time_limited(net: torch.nn.Module, sp: SelfPlayState,
+                                 elapsed: torch.Tensor, cfg: EnvConfig,
+                                 num_steps: int, max_episode_plies: int,
+                                 draws, init_rand_steps: int = 0,
+                                 logp_mode: str = "masked", opp_net=None):
+    """``collect_rollout`` with an episode step cap (JAX
+    ``collect_rollout_time_limited``; TimeLimit + TimeLimitMask,
+    envs.py:110-119): an episode whose protagonist has taken
+    ``max_episode_plies`` decisions is truncated (done, reward 0) and
+    flagged, also where the game ended on that step, so that
+    ``compute_gae_time_limits`` zeroes its advantage.
+
+    ``elapsed`` int32 (N,) counts the episode's emitted protagonist
+    decisions including the pending one (ones after ``selfplay_init``).
+    Returns ``(state, elapsed, rollout, bad_transition (T, N) bool,
+    bootstrap_value)``."""
+    opp_net = net if opp_net is None else opp_net
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    rand_openings = init_rand_steps > 0
+    syncs = sp.host_syncs
+    env, rand_left, pcolor, pending = (sp.env, sp.rand_left, sp.pcolor,
+                                       sp.pending)
+    slots, bad = [], []
+    for _ in range(num_steps):
+        env, rand_left, n_sync = advance_opponent(
+            opp_net, env, rand_left, pcolor, cfg, draws, rand_openings)
+        syncs += n_sync
+        truncated = elapsed >= max_episode_plies
+        done = env.terminated | truncated
+        outcome = _ENGINE.outcome_for(env, pcolor, cfg)
+        reward = torch.where(env.terminated, outcome,
+                             torch.zeros_like(outcome))
+        slots.append(Transition(obs=pending.obs, action=pending.action,
+                                logp=pending.logp, value=pending.value,
+                                reward=reward, done=done,
+                                legal=pending.legal))
+        bad.append(truncated)
+        env, rand_left, pcolor = reset_done(env, rand_left, pcolor, done,
+                                            draws, init_rand_steps)
+        elapsed = torch.where(done, torch.zeros_like(elapsed), elapsed)
+        env, rand_left, n_sync = advance_opponent(
+            opp_net, env, rand_left, pcolor, cfg, draws, rand_openings)
+        syncs += n_sync
+        env, rand_left, pending = protagonist_act(
+            net, env, rand_left, cfg, draws, logp_mode, rand_openings)
+        elapsed = elapsed + 1
+    rollout = _stack(slots)
+    new = SelfPlayState(env=env, rand_left=rand_left, pcolor=pcolor,
+                        pending=pending, host_syncs=syncs)
+    return new, elapsed, rollout, torch.stack(bad), pending.value
+
+
+def _stack(slots) -> Transition:
+    return Transition(**{
+        f.name: torch.stack([getattr(s, f.name) for s in slots])
+        for f in dataclasses.fields(Transition)})
+
+
+# ---------------------------------------------------------------------------
+# Recurrent (GRU or frame-stack) self-play collection (JAX
+# self_play.py:441-625).  Each colour's decision stream is a sequence of
+# the stateful policy.  ``pending.h`` is the hidden state the pending
+# decision CONSUMED, so a rollout's ``h0`` is the first pending's and
+# ``masks[t] = 1 - done[t-1]`` replays the live resets (games reset in the
+# slot their terminal transition is emitted, both streams zeroed there).
+# The opponent stream advances only on plies the opponent takes.  As in
+# JAX, every ply here draws its random-opening move (the override applies
+# only while ``rand_left > 0``).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RecPending(Pending):
+    h: torch.Tensor = None   # float32 (N, H) hidden input of this decision
+
+
+@dataclasses.dataclass
+class RecSelfPlayState:
+    env: bb.BitState
+    rand_left: torch.Tensor
+    pcolor: torch.Tensor
+    pending: RecPending
+    h_prot: torch.Tensor     # (N, H) protagonist hidden after the pending
+    h_opp: torch.Tensor      # (N, H) opponent-stream hidden
+    host_syncs: int = 0
+
+
+def policy_sample_rec(net: torch.nn.Module, env: bb.BitState, draws,
+                      h: torch.Tensor):
+    """Recurrent ``policy_sample``: ``(obs, legal, action, logp, value,
+    h')``.  Resets zero ``h`` at game boundaries, so the mask is all
+    ones."""
+    obs = _ENGINE.featurize(env)
+    legal = _ENGINE.legal_flat(env)
+    logits, value, h_new = net(obs, h, torch.ones(h.shape[0],
+                                                  device=h.device))
+    dist = MaskedCategorical(logits=logits, mask=legal)
+    action = dist.sample(u=draws.uniforms(obs.shape[0], obs.device))
+    return obs, legal, action, dist.log_prob(action), value, h_new
+
+
+def advance_opponent_rec(net: torch.nn.Module, env: bb.BitState,
+                         rand_left: torch.Tensor, pcolor: torch.Tensor,
+                         h_opp: torch.Tensor, cfg: EnvConfig, draws):
+    """Recurrent ``advance_opponent``: the opponent's hidden stream
+    advances only where its game took a ply.  Returns ``(env, rand_left,
+    h_opp, host_syncs)``."""
+    for i in range(MAX_ADVANCE_ITERS + 1):
+        needs = ~env.terminated & (env.turn != pcolor)
+        if not bool(needs.any()):
+            return env, rand_left, h_opp, i + 1
+        if i == MAX_ADVANCE_ITERS:
+            break
+        _, _, action, _, _, h_new = policy_sample_rec(net, env, draws,
+                                                      h_opp)
+        h_opp = torch.where(needs[:, None], h_new, h_opp)
+        env, rand_left = masked_step(env, rand_left, action, needs, cfg,
+                                     draws)
+    raise RuntimeError(f"opponent still to move after {MAX_ADVANCE_ITERS} "
+                       "plies in a row: the game state is corrupt")
+
+
+def _rec_protagonist_act(net: torch.nn.Module, env: bb.BitState,
+                         rand_left: torch.Tensor, h_prot: torch.Tensor,
+                         cfg: EnvConfig, draws):
+    """The protagonist decides from ``h_prot`` and steps; returns ``(env,
+    rand_left, pending, h')``."""
+    obs, legal, action, logp, value, h_new = policy_sample_rec(
+        net, env, draws, h_prot)
+    env, rand_left = masked_step(env, rand_left, action,
+                                 torch.ones_like(env.terminated), cfg, draws)
+    pending = RecPending(obs=obs.to(torch.int8), action=action, logp=logp,
+                         value=value, legal=legal, h=h_prot)
+    return env, rand_left, pending, h_new
+
+
+@torch.no_grad()
+def selfplay_init_recurrent(net: torch.nn.Module, cfg: EnvConfig,
+                            num_envs: int, hidden_size: int, draws,
+                            init_rand_steps: int = 0, opp_net=None,
+                            device=None) -> RecSelfPlayState:
+    """Fresh games and the first protagonist decision from zero hidden
+    states, on ``device`` (default: the net's)."""
+    if device is None:
+        device = next(net.parameters()).device
+    opp_net = net if opp_net is None else opp_net
+    env = bb.bit_reset(num_envs, device)
+    rand_left = draws.rand_left(num_envs, init_rand_steps, device)
+    pcolor = draws.colors(num_envs, device)
+    h_prot = torch.zeros(num_envs, hidden_size, device=device)
+    h_opp = torch.zeros(num_envs, hidden_size, device=device)
+    env, rand_left, h_opp, syncs = advance_opponent_rec(
+        opp_net, env, rand_left, pcolor, h_opp, cfg, draws)
+    env, rand_left, pending, h_prot = _rec_protagonist_act(
+        net, env, rand_left, h_prot, cfg, draws)
+    return RecSelfPlayState(env=env, rand_left=rand_left, pcolor=pcolor,
+                            pending=pending, h_prot=h_prot, h_opp=h_opp,
+                            host_syncs=syncs)
+
+
+@torch.no_grad()
+def collect_rollout_recurrent(net: torch.nn.Module, sp: RecSelfPlayState,
+                              cfg: EnvConfig, num_steps: int, draws,
+                              init_rand_steps: int = 0, opp_net=None):
+    """``num_steps`` slots with the hidden states threaded; returns
+    ``(state, rollout (T, N, ...), h0 (N, H), masks (T, N), bootstrap
+    (N,))``, the inputs ``agents.ppo.ppo_update_recurrent`` replays."""
+    opp_net = net if opp_net is None else opp_net
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    syncs = sp.host_syncs
+    env, rand_left, pcolor, pending = (sp.env, sp.rand_left, sp.pcolor,
+                                       sp.pending)
+    h_prot, h_opp, h0 = sp.h_prot, sp.h_opp, sp.pending.h
+    slots = []
+    for _ in range(num_steps):
+        env, rand_left, h_opp, n_sync = advance_opponent_rec(
+            opp_net, env, rand_left, pcolor, h_opp, cfg, draws)
+        syncs += n_sync
+        done = env.terminated
+        outcome = _ENGINE.outcome_for(env, pcolor, cfg)
+        reward = torch.where(done, outcome, torch.zeros_like(outcome))
+        slots.append(Transition(obs=pending.obs, action=pending.action,
+                                logp=pending.logp, value=pending.value,
+                                reward=reward, done=done,
+                                legal=pending.legal))
+        env, rand_left, pcolor = reset_done(env, rand_left, pcolor, done,
+                                            draws, init_rand_steps)
+        # Both hidden streams start again for fresh games.
+        h_prot = torch.where(done[:, None], torch.zeros_like(h_prot), h_prot)
+        h_opp = torch.where(done[:, None], torch.zeros_like(h_opp), h_opp)
+        env, rand_left, h_opp, n_sync = advance_opponent_rec(
+            opp_net, env, rand_left, pcolor, h_opp, cfg, draws)
+        syncs += n_sync
+        env, rand_left, pending, h_prot = _rec_protagonist_act(
+            net, env, rand_left, h_prot, cfg, draws)
+    rollout = _stack(slots)
+    masks = torch.cat([torch.ones_like(rollout.done[:1], dtype=torch.float32),
+                       1.0 - rollout.done[:-1].to(torch.float32)])
+    new = RecSelfPlayState(env=env, rand_left=rand_left, pcolor=pcolor,
+                           pending=pending, h_prot=h_prot, h_opp=h_opp,
+                           host_syncs=syncs)
+    return new, rollout, h0, masks, pending.value

@@ -5,8 +5,11 @@ A tiny port-written checkpoint plays rand, greedy, maximin-1 and itself
 (``ckpt:``) with JAX's printed lines; the tournament prints its rows and
 table; ``load_eval_policy`` gives JAX's description and knobs for the
 committed wide2 checkpoint, and its net's forward agrees with JAX's
-``apply`` to 1e-5; recurrent, frame-stacked and ``.pth`` checkpoints and
-other board sizes are refused."""
+``apply`` to 1e-5; recurrent and frame-stacked checkpoints load with JAX's
+descriptions and play every recurrent branch of the CLI (raw and armed at
+depth 1, as protagonist and as ``ckpt:`` opponent, the roles swapped for
+a feed-forward protagonist), with JAX's refusals; ``.pth`` checkpoints
+and other board sizes are refused."""
 
 import contextlib
 import io
@@ -129,21 +132,80 @@ def test_load_eval_policy_matches_jax():
 
 
 def test_load_eval_policy_refusals(tmp_path):
+    """``.pth``/``.pt`` stay refused (queue 1 item 12); the committed
+    recurrent checkpoint and a frame-stack-2 one now load, with JAX's
+    descriptions, as a recurrent net and a frame-stack cell."""
     with pytest.raises(NotImplementedError, match="item 12"):
         load_eval_policy(str(tmp_path / "ref.pth"), device="cpu")
     if os.path.isfile(RECURRENT):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            load_eval_policy(RECURRENT, device="cpu")
-    stacked = {"params": {"ConvTrunk_0": {"Conv_0": {
-        "kernel": np.zeros((3, 3, 8, 32), np.float32)}}}}
-    path = str(tmp_path / "stacked.msgpack")
-    ck.save_checkpoint(path, 1, stacked)
-    with pytest.raises(NotImplementedError, match="frame_stack=2"):
-        load_eval_policy(path, device="cpu")
-    recurrent = {"params": {"ConvTrunk_0": {}, "GRUCore_0": {}}}
-    ck.save_checkpoint(path, 1, recurrent)
-    with pytest.raises(NotImplementedError, match="GRUCore_0"):
-        load_eval_policy(path, device="cpu")
+        net, desc = load_eval_policy(RECURRENT, device="cpu")
+        assert desc == "step 2000, recurrent"
+        assert net.recurrent and net.hidden_size == 512
+    path = _stateful_ckpt(tmp_path, frame_stack=2)
+    cell, desc = load_eval_policy(path, device="cpu")
+    assert desc == jtrainer.load_eval_policy(path, JaxEnvConfig())[2] == (
+        "step 0, width_mult=1, hidden=32, frame_stack=2")
+    assert cell.recurrent and cell.nstack == 2 and cell.hidden_size == 256
+    assert cell.net.trunk.conv0.in_channels == 8
+
+
+def _stateful_ckpt(tmp_path, **run):
+    trainer = PPOSelfPlayTrainer(
+        ppo_cfg=PPOConfig(num_updates=1),
+        run_cfg=SelfPlayConfig(num_envs=8, num_steps=4, hidden_size=32,
+                               **run),
+        log_fn=lambda *a: None, device="cpu")
+    path = str(tmp_path / ("_".join(f"{k}{v}" for k, v in run.items())
+                           + ".msgpack"))
+    trainer.save(path)
+    return path
+
+
+@pytest.mark.parametrize("case", ["raw", "lookahead", "self-armed",
+                                  "ff-vs-recurrent", "framestack"])
+def test_eval_checkpoint_recurrent_branches(tmp_path, tiny_ckpt, case):
+    """JAX's branches (eval_checkpoint.py:150-210) on tiny checkpoints: a
+    recurrent protagonist raw or with ``--lookahead`` (depth 1), against
+    itself as a ``ckpt:`` opponent armed at depth 1, a feed-forward
+    protagonist against the recurrent opponent (the roles swapped), and a
+    frame-stacked protagonist; each prints JAX's lines and plays every
+    game."""
+    rec = _stateful_ckpt(tmp_path, recurrent=True)
+    load, opp, flags = {
+        "raw": (rec, "greedy", []),
+        "lookahead": (rec, "rand", ["--lookahead"]),
+        "self-armed": (rec, f"ckpt:{rec}", ["--opp-lookahead-depth", "1"]),
+        "ff-vs-recurrent": (tiny_ckpt, f"ckpt:{rec}", []),
+        "framestack": (_stateful_ckpt(tmp_path, frame_stack=3), "greedy",
+                       []),
+    }[case]
+    (w, d, l), lines = _run(eval_checkpoint.main, [
+        "--device", "cpu", "--load", load, "--opponent", opp, *flags,
+        "--games", "6", "--init-rand-steps", "4", "--seed", "2"])
+    assert w + d + l == 6
+    m = RESULT.match(lines[-1])
+    assert m and m.group(1) == opp, lines[-1]
+    assert (int(m.group(2)), int(m.group(3)), int(m.group(4))) == (w, d, l)
+    if opp.startswith("ckpt:"):
+        assert lines[1].endswith("(step 0, width_mult=1, hidden=32, "
+                                 "recurrent)")
+
+
+def test_eval_checkpoint_recurrent_refusals(tmp_path):
+    """A recurrent opponent armed deeper than 1 is a ``parser.error``; a
+    recurrent protagonist at ``--lookahead-depth 2`` raises the cell's
+    ``NotImplementedError`` (JAX eval_checkpoint.py:107-108,
+    ppo_trainer.py:226-229)."""
+    rec = _stateful_ckpt(tmp_path, recurrent=True)
+    with pytest.raises(SystemExit) as err:
+        _run(eval_checkpoint.main, [
+            "--device", "cpu", "--load", rec, "--opponent", f"ckpt:{rec}",
+            "--opp-lookahead-depth", "2", "--games", "2"])
+    assert err.value.code == 2
+    with pytest.raises(NotImplementedError, match="depth 1 only"):
+        _run(eval_checkpoint.main, [
+            "--device", "cpu", "--load", rec, "--lookahead-depth", "2",
+            "--games", "2"])
 
 
 def test_port_checkpoint_loads_in_jax_eval_loader(tmp_path):
@@ -169,6 +231,10 @@ def test_ladder_two_proportion_test():
     assert p == pytest.approx(0.3066947717413323, rel=1e-9)
     assert [c[1] for c in ladder.CELLS] == [
         "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}", "maximin-2",
-        "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}"]
+        "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}", "maximin-2",
+        "maximin-2", f"ckpt:{ladder.REC2000}"]
     assert [c[3:5] for c in ladder.CELLS[3:]] == [
-        (963, 1000), (991, 1000), (993, 1000), (891, 1000)]
+        (963, 1000), (991, 1000), (993, 1000), (891, 1000), (289, 400),
+        (271, 400), (114, 400)]
+    assert [c[0] for c in ladder.CELLS[7:]] == [
+        ladder.REC2000, ladder.REC_WIDE2, ladder.LA3500]

@@ -57,5 +57,5 @@ def test_training_slice_modules_are_checked():
                 "scripts/bench_rollout_variants.py", "utils/checkpoint.py",
                 "models/convert.py", "policies/scripted.py",
                 "cli/tournament.py", "cli/eval_checkpoint.py",
-                "scripts/ladder.py"):
+                "scripts/ladder.py", "envs/vec_wrappers.py"):
         assert rel in checked, rel

@@ -1,9 +1,10 @@
 """The port's PPO self-play trainer and its CLI on the CPU at a small size:
 two updates give finite metrics and move the params, evaluation gives win
 rates in [0, 1], the metrics logger writes JSONL, the checkpoint, pool and
-chain flags work, and every feature of the JAX trainer that is not ported
-yet raises (the trainer's config, the collector, and an argparse error for
-the CLI flag)."""
+chain flags work; the recurrent, frame-stacked, time-limited and bfloat16
+trainers run through the CLI (the pool with recurrent anchors too) and
+refuse what JAX's trainer refuses, with its messages; ``--board-size``
+other than 8 is an argparse error."""
 
 import contextlib
 import io
@@ -13,6 +14,7 @@ import os
 import pytest
 import torch
 
+from gymothelloenv_tpu.train import ppo_trainer as jtrainer
 from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
 from gymothelloenv_tpu_torch.cli import ppo_self_play as cli
 from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask
@@ -53,14 +55,42 @@ def test_trainer_two_updates_on_cpu():
     assert set(rates) == {"rand", "greedy"}
 
 
+# Each option of the last slice: with what JAX's trainer refuses in its
+# company, and its message (None: it builds).
+_GUARDS = {
+    "bf16": ({}, None),
+    "recurrent": ({"frame_stack": 2}, "recurrent and frame_stack are "
+                  "mutually exclusive (both thread policy state)"),
+    "frame_stack": ({"num_envs": 6}, "recurrent/frame-stack PPO needs "
+                    "num_envs (6) divisible by num_mini_batch (4)"),
+    "max_episode_plies": ({"recurrent": True},
+                          "max_episode_plies is feed-forward only"),
+}
+
+
 @pytest.mark.parametrize("field,value", [
     ("bf16", True), ("recurrent", True),
     ("frame_stack", 2), ("max_episode_plies", 30),
 ])
 def test_trainer_rejects_unported_features(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        PPOSelfPlayTrainer(run_cfg=SelfPlayConfig(**{field: value}),
-                           device="cpu")
+    """Formerly unported, now each option builds (bf16: a bfloat16 net
+    with float32 params) or raises JAX's own guard, in its words, as the
+    JAX trainer does with the same config."""
+    extra, message = _GUARDS[field]
+    run = dict(hidden_size=16, **{field: value}, **extra)
+    if message is None:
+        trainer = PPOSelfPlayTrainer(run_cfg=SelfPlayConfig(**run),
+                                     device="cpu")
+        assert trainer.net.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32
+                   for p in trainer.net.parameters())
+        return
+    with pytest.raises(ValueError) as want:
+        jtrainer.PPOSelfPlayTrainer(run_cfg=jtrainer.SelfPlayConfig(**run),
+                                    log_fn=lambda *a: None)
+    with pytest.raises(ValueError) as got:
+        PPOSelfPlayTrainer(run_cfg=SelfPlayConfig(**run), device="cpu")
+    assert str(got.value) == str(want.value) == message
 
 
 def test_trainer_rejects_mesh_and_a_missing_card(monkeypatch):
@@ -93,9 +123,18 @@ def test_cli_runs_on_cpu_and_logs_jsonl(tmp_path):
                                   "--max-episode-plies=30",
                                   "--board-size=6"])
 def test_cli_rejects_unported_flags(flag):
-    with pytest.raises(SystemExit) as err:
-        cli.build_parser().parse_args([flag])
-    assert err.value.code == 2
+    """``--board-size`` other than 8 stays an argparse error; the flags of
+    the last slice parse, with JAX's defaults when absent."""
+    if flag == "--board-size=6":
+        with pytest.raises(SystemExit) as err:
+            cli.build_parser().parse_args([flag])
+        assert err.value.code == 2
+        return
+    name, _, value = flag[2:].replace("-", "_").partition("=")
+    default = vars(cli.build_parser().parse_args([]))[name]
+    got = vars(cli.build_parser().parse_args([flag]))[name]
+    assert default in (False, 1, 0)
+    assert got == (int(value) if value else True) != default
 
 
 CLI_SMALL = ["--device", "cpu", "--num-envs", "16", "--num-steps", "8",
@@ -143,6 +182,58 @@ def test_cli_pool_and_chain_flags(tmp_path):
     assert trainer.update_count == 4
     assert [line.split()[1] for line in lines
             if line.startswith("[update")] == ["2]", "4]"]
+
+
+@pytest.mark.parametrize("flags", [["--recurrent"], ["--frame-stack", "4"],
+                                   ["--max-episode-plies", "8"],
+                                   ["--bf16"]])
+def test_cli_state_paths_run_on_cpu(flags):
+    """The acceptance commands (N 16, T 8, 2 updates, hidden 32): finite
+    losses, the path's collector (truncations with the time limit), an
+    evaluation, and under ``--bf16`` the first line's precision."""
+    trainer, lines = _cli(["--num-updates", "2"] + flags)
+    assert trainer.update_count == 2
+    updates = [line for line in lines if line.startswith("[update")]
+    assert len(updates) == 2
+    for line in updates:
+        metrics = dict(kv.split("=") for kv in line.split()[2:])
+        for key in ("value_loss", "action_loss", "entropy"):
+            assert torch.isfinite(torch.tensor(float(metrics[key]))), key
+        assert ("truncations" in metrics) == ("--max-episode-plies" in flags)
+    assert lines[-1].startswith("final eval:")
+    if flags == ["--bf16"]:
+        assert lines[0] == ("device: cpu; bfloat16 net compute, float32 "
+                            "parameters; TF32 off for matmul and cuDNN in "
+                            "the float32 parts")
+    else:
+        assert lines[0] == "device: cpu; float32, TF32 off for matmul and cuDNN"
+    assert trainer.policy.recurrent == (flags[0] in ("--recurrent",
+                                                     "--frame-stack"))
+
+
+def test_cli_recurrent_with_frame_stack_fails_with_jax_message():
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        _cli(["--num-updates", "1", "--recurrent", "--frame-stack", "2"])
+
+
+def test_recurrent_pool_and_anchors(tmp_path):
+    """A recurrent run with an opponent pool: a recurrent anchor joins the
+    draw and the pool holds frozen recurrent snapshots; a feed-forward
+    anchor does not fit the recurrent net and raises JAX's message."""
+    rec, ff = str(tmp_path / "rec.msgpack"), str(tmp_path / "ff.msgpack")
+    _cli(["--num-updates", "1", "--recurrent", "--checkpoint", rec])
+    _cli(["--num-updates", "1", "--checkpoint", ff])
+    trainer, _ = _cli(["--num-updates", "2", "--recurrent",
+                       "--opponent-pool", "2", "--pool-interval", "1",
+                       "--pool-anchor", rec])
+    assert len(trainer.anchors) == 1 and len(trainer.pool) == 2
+    for opp in trainer.anchors + trainer.pool:
+        assert opp.recurrent and not any(p.requires_grad
+                                         for p in opp.parameters())
+    with pytest.raises(ValueError, match="does not match the training net "
+                       "architecture"):
+        _cli(["--num-updates", "1", "--recurrent", "--opponent-pool", "2",
+              "--pool-anchor", ff])
 
 
 @pytest.mark.parametrize("run", [dict(opponent_pool=2, pool_interval=0),
