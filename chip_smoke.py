@@ -13,8 +13,8 @@ set to 0 just before it and read just after:
   * the fused random-play rollout (kernel K1) at the bench protocol, with
     each game on the lane group that ops/rollout.py rollout_lanes picks,
     and the wide2 policy net against the greedy opponent through the
-    bitboard engine (the ply kernel, csrc/step.cu, on every ply; K2 once
-    per bit_reset);
+    bitboard engine (the ply kernel, csrc/step.cu, on every ply; no K2:
+    bit_reset is the constant opening);
   * the rollout-variant profiler (kernel K3: K1 with one component stubbed
     out, or at another unroll / block size), every configuration of
     gymothelloenv_tpu_torch/scripts/bench_rollout_variants.py at the bench
@@ -22,7 +22,7 @@ set to 0 just before it and read just after:
   * PPO self-play training: PPOSelfPlayTrainer at wide2 with the tuned
     recipe (N 1024, T 64, lr 2.5e-4, entropy 0.01) for 3 updates and one
     200-game evaluation (the ply kernel on every ply and every reset of
-    collection and evaluation; K2 once per bit_reset);
+    collection and evaluation; no K2);
     then one ppo_update on the card against the same update on the CPU
     from the same params, rollout and shuffle words, at a reduced size;
   * checkpoint IO: the trained trainer saved in the JAX trainer's format
@@ -68,7 +68,24 @@ set to 0 just before it and read just after:
     written from seeded nets (raw vs greedy, --lookahead vs maximin-2,
     against itself armed at depth 1, the frame-stacked one vs greedy),
     and the recurrent lookahead card vs CPU, one B1 launch a decision
-    ([recurrent_eval]).
+    ([recurrent_eval]);
+  * the plane engine at other board sizes: 4096 games of random play to
+    the end at B = 6 and 10 on the card, every state field equal to the
+    CPU's at every ply, eager kernels and ms a plane ply at B = 6, 8
+    (forced) and 10; and on 8x8 the force_plane collector (wide2, N 1024,
+    T 16) equal to the BitEngine collector transition for transition,
+    one B1 launch a plane ply ([plane]);
+  * perft on the card, K2's launch for both sides' masks and B1's for the
+    children of every level: depths 1-9 from the opening (4 ... 55092 at
+    1-7, the C++ oracle native/othello_perft.cpp, built with g++, at 8
+    and 9) and perft_from at depths 2-4 on midgame positions ([perft]);
+  * cli/ppo_self_play.py --board-size 6 at wide2 (N 1024, T 64, 3
+    updates), then its ppo_update card vs CPU ([plane_train]);
+  * cli/tournament.py --board-size 10 (greedy vs random, maximin-1 vs
+    greedy) and --board-size 6 (maximin-2 vs greedy), cli/eval_checkpoint
+    .py --board-size 6 on a seeded board-6 wide2 checkpoint vs maximin-1,
+    200 games each, and plane maximin card = CPU on 512 states
+    ([plane_eval]).
 
 It reads no file outside gymothelloenv_tpu_torch/ (the nets are seeded
 inits; the checkpoints it reads are the ones it wrote, in a temporary
@@ -242,6 +259,28 @@ BF16_ENVS, BF16_STEPS, BF16_UPDATES = 1024, 64, 2
 # card vs CPU on REC_LA_N reachable states with random hidden states.
 REC_EVAL_GAMES = 200
 REC_LA_N = 4096
+# [plane]: PLANE_N games of random play to the end at each of PLANE_SIZES
+# on the card and the CPU; kernels and ms a plane ply at N PLANE_N after
+# PLANE_WARM random plies, timed over PLANE_TIME_REPS plies; the
+# force_plane collector against the bit one (wide2, N 1024, 3 rollouts of
+# T 16: games end and reset from the third).
+PLANE_N, PLANE_SIZES, PLANE_WARM, PLANE_TIME_REPS = 4096, (6, 10), 10, 20
+PLANE_FP_ENVS, PLANE_FP_STEPS, PLANE_FP_ROLLOUTS = 1024, 16, 3
+# [perft]: depths 1-PERFT_DEPTH from the opening (the published counts to
+# depth 7, the C++ oracle beyond), and perft_from at PERFT_FROM_DEPTHS on
+# PERFT_MIDGAME positions of 20-44 random plies.
+PERFT_DEPTH = 9
+PERFT_KNOWN = {1: 4, 2: 12, 3: 56, 4: 244, 5: 1396, 6: 8200, 7: 55092}
+PERFT_FROM_DEPTHS, PERFT_MIDGAME = (2, 3, 4), 8
+# [plane_train]: ppo_self_play --board-size 6 at wide2, the tuned recipe's
+# N and T, 3 updates (cut from a run's length); the card-vs-CPU update at
+# REF_ENVS, REF_STEPS on the same board.
+PLANE_TRAIN_BOARD = 6
+# [plane_eval]: 200 games a run; plane maximin card vs CPU on
+# PLANE_MAXIMIN_N states per (board, depth).
+PLANE_EVAL_GAMES = 200
+PLANE_MAXIMIN_N = 512
+PLANE_MAXIMIN = ((6, 2), (10, 1))
 DEVICE_TYPE = "cuda"
 
 
@@ -264,6 +303,13 @@ def bound_ms(nbytes, ops):
 def word_bits_err(tb, a, b):
     """Most differing bits in any word (0 = exact)."""
     return int(tb.popcount(a ^ b).max().item()) if a.numel() else 0
+
+
+def _require_no_k2(count, path):
+    """The 8x8 paths flood inside B1 and reset to the constant opening:
+    K2 runs on perft's levels and its own benchmark only."""
+    require(count == 0, f"K2 launched {count} times on the {path} path, "
+            "where every flood is inside the ply kernel")
 
 
 def main():
@@ -338,18 +384,7 @@ def main():
                   plain_ms=timing.call_ms(lambda: legal_mask_plain(cur, opp),
                                    3))
     k2_big["bound_ms"], _ = bound_ms(nbytes, K2_OPS_PER_BOARD * LEGAL_BOARDS)
-    # The main path's shape: bit_step stacks both sides of 512 games.
-    m = torch.cat([cur[:512], opp[:512]])
-    o = torch.cat([opp[:512], cur[:512]])
-    got_s, want_s = legal_mask(m, o), legal_mask_plain(m, o)
-    require(torch.equal(got_s, want_s), "K2 disagrees at the eval shape")
-    k2 = dict(ms=timing.device_ms(lambda: legal_mask(m, o), 200),
-              call_ms=timing.call_ms(lambda: legal_mask(m, o), 200),
-              plain_ms=timing.call_ms(lambda: legal_mask_plain(m, o), 20))
-    k2["bound_ms"], k2["bound_by"] = bound_ms(24 * 1024,
-                                              K2_OPS_PER_BOARD * 1024)
-    k2["max_abs_err"] = max(word_bits_err(tb, got, want),
-                            word_bits_err(tb, got_s, want_s))
+    k2_big["max_abs_err"] = word_bits_err(tb, got, want)
     k2_big.update(_sass_bound(torch, info.path, "legal_mask_kernel",
                               LEGAL_BOARDS))
     # K2's own path, the one the JAX package gives it (bench_pallas.py):
@@ -368,11 +403,9 @@ def main():
             "count, the formula's bound only")
     say(f"[legal_mask] ok: exact on {LEGAL_BOARDS} boards: kernel "
         f"{k2_big['ms']:.4f} ms, plain {k2_big['plain_ms']:.3f} ms, bound "
-        f"{k2_big['bound_ms']:.4f} ms; {sass}; at 1024 boards: kernel "
-        f"{k2['ms']:.4f} ms on the device, {k2['call_ms']:.4f} ms per "
-        f"wrapper call, plain {k2['plain_ms']:.3f} ms; bench at "
+        f"{k2_big['bound_ms']:.4f} ms; {sass}; bench at "
         f"{BENCH_LEGAL_BATCH} random boards exact, {bench['launches']} "
-        "launches")
+        "launches (perft's shape is held in [perft])")
 
     # 3b. bit_step (the ply kernel and reset_where) -------------------------
     ply = _bit_step_phase(torch, tb, ro, step, timing, dev, gen)
@@ -415,7 +448,7 @@ def main():
                                           dev)
     k1["lanes_ms"] = _rollout_lanes_phase(torch, ro, dev)
 
-    # 6. eval (the ply kernel on every ply, K2 in bit_reset) -----------------
+    # 6. eval (the ply kernel on every ply; no K2) ---------------------------
     say(f"[eval] start: wide2 PolicyNet (width_mult={WIDTH_MULT}, "
         f"hidden={HIDDEN}, seeded init) vs greedy, {EVAL_GAMES} games, "
         f"init_rand_steps={EVAL_RAND_STEPS}")
@@ -437,8 +470,10 @@ def main():
                 "bit_step": step.bit_step.launches,
                 "rollout": rollout_launches}
     require(wins + draws + losses == EVAL_GAMES, "eval lost games")
-    for kname, count in launches.items():
-        require(count > 0, f"kernel {kname} was not launched on the main path")
+    for kname in ("bit_step", "rollout"):
+        require(launches[kname] > 0, f"kernel {kname} was not launched on "
+                "the main path")
+    _require_no_k2(launches["legal_mask"], "eval")
     require(not plain_calls, f"the evaluation ran the ply's plain version "
             f"on the card: {plain_calls[:3]}")
     say(f"[eval] ok: W/D/L {wins}/{draws}/{losses} in {eval_s:.2f} s; "
@@ -503,33 +538,50 @@ def main():
     say("[recurrent slice] wall seconds of its phases: "
         + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
 
+    # 22. plane, 23. perft, 24. plane_train, 25. plane_eval -----------------
+    slice8, wall = {}, {}
+    for label, phase in (
+            ("plane", lambda: _plane_phase(torch, tb, step, dev)),
+            ("perft", lambda: _perft_phase(torch, tb, legal_mask, step,
+                                           timing, dev)),
+            ("plane_train", lambda: _plane_train_phase(
+                torch, tb, legal_mask, step, dev)),
+            ("plane_eval", lambda: _plane_eval_phase(
+                torch, tb, legal_mask, step, dev))):
+        t0 = time.perf_counter()
+        slice8[label] = phase()
+        wall[label] = time.perf_counter() - t0
+    say("[plane slice] wall seconds of its phases: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    pf = slice8["perft"]
+
     # 11. kernels line --------------------------------------------------------
     rows = [
         dict(name="legal_mask", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/legal_mask.cu",
              replaces="gymothelloenv_tpu/ops/pallas_bitboard.py:76",
-             launches=(bench["launches"] + launches["legal_mask"]
-                       + train["k2_launches"] + la_train["k2_launches"]
-                       + evalck["k2_launches"]
-                       + sum(v["k2_launches"] for v in slice7.values())),
+             launches=bench["launches"] + pf["k2_launches"],
              launches_by_path={"bench": bench["launches"],
+                               "perft": pf["k2_launches"],
                                "eval": launches["legal_mask"],
                                "train": train["k2_launches"],
                                "lookahead_train": la_train["k2_launches"],
                                "eval_checkpoint": evalck["k2_launches"],
                                **{k: v["k2_launches"]
-                                  for k, v in slice7.items()}},
-             recurrent_reset_ms=rec["k2_ms"],
-             recurrent_reset_boards=REC_ENVS,
-             library_ms=None,
-             equal=True, tolerance="exact", shape="2 x 512 boards",
+                                  for k, v in slice7.items()},
+                               **{k: v["k2_launches"]
+                                  for k, v in slice8.items()
+                                  if k != "perft"}},
+             library_ms=None, equal=True, tolerance="exact",
+             shape=f"2 x {pf['k2']['boards'] // 2} boards (perft's depth-9 "
+                   "level)",
              ms_1m=k2_big["ms"], plain_ms_1m=k2_big["plain_ms"],
              bound_ms_1m=k2_big["bound_ms"],
              sass_per_board=k2_big["sass_per_board"],
              sass_bound_ms_1m=k2_big["sass_bound_ms"],
              bench_boards=BENCH_LEGAL_BATCH, bench_ms=bench["ms"],
              bench_call_ms=bench["call_ms"],
-             bench_plain_ms=bench["plain_ms"], **k2),
+             bench_plain_ms=bench["plain_ms"], **pf["k2"]),
         dict(name="bit_step", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
              replaces="no Pallas kernel: gymothelloenv_tpu/core/bitboard.py"
@@ -540,7 +592,8 @@ def main():
                        + la_train["bit_step_launches"]
                        + evalck["bit_step_launches"]
                        + sum(v["bit_step_launches"]
-                             for v in slice7.values())),
+                             for v in (*slice7.values(),
+                                       *slice8.values()))),
              launches_by_path={"eval": launches["bit_step"],
                                "train": train["bit_step_launches"],
                                "maximin": mm["launches"],
@@ -550,9 +603,12 @@ def main():
                                "eval_checkpoint":
                                    evalck["bit_step_launches"],
                                **{k: v["bit_step_launches"]
-                                  for k, v in slice7.items()}},
+                                  for k, v in (*slice7.items(),
+                                               *slice8.items())}},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games, where mode (the collector's)",
+             perft_seconds=pf["seconds"],
+             plane_forced_ms=slice8["plane"]["ms_a_ply"][8],
              train_ms=train["ply_ms"], recurrent_train_ms=rec["ply_ms"],
              maximin=mm["timing"],
              lookahead=la["timing"], lookahead_train=la_train["seconds"],
@@ -562,13 +618,15 @@ def main():
              replaces="no Pallas kernel: gymothelloenv_tpu/core/engine.py"
                       ":120 BitEngine.reset_where (XLA-fused)",
              launches=(train["reset_launches"] + la_train["reset_launches"]
-                       + sum(v["reset_launches"] for v in slice7.values()
+                       + sum(v["reset_launches"]
+                             for v in (*slice7.values(), *slice8.values())
                              if "reset_launches" in v)),
              launches_by_path={"train": train["reset_launches"],
                                "lookahead_train":
                                    la_train["reset_launches"],
                                **{k: v["reset_launches"]
-                                  for k, v in slice7.items()
+                                  for k, v in (*slice7.items(),
+                                               *slice8.items())
                                   if "reset_launches" in v}},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games (the collector's)",
@@ -859,10 +917,11 @@ def _sass_bound(torch, library, kernel, boards):
 @contextlib.contextmanager
 def _no_plain(tb):
     """Record each call of the ply's plain versions (bit_step_plain,
-    reset_where_plain) while the block runs: on the card a main path must
-    make none."""
+    reset_where_plain) and of K2's (the wrapper's legal_mask_plain) while
+    the block runs: on the card a main path must make none."""
+    from gymothelloenv_tpu_torch.ops import legal_mask as k2
     calls = []
-    real = (tb.bit_step_plain, tb.reset_where_plain)
+    real = (tb.bit_step_plain, tb.reset_where_plain, k2.legal_mask_plain)
 
     def counted(fn):
         def wrapped(*args, **kwargs):
@@ -870,11 +929,12 @@ def _no_plain(tb):
             return fn(*args, **kwargs)
         return wrapped
 
-    tb.bit_step_plain, tb.reset_where_plain = map(counted, real)
+    (tb.bit_step_plain, tb.reset_where_plain,
+     k2.legal_mask_plain) = map(counted, real)
     try:
         yield calls
     finally:
-        tb.bit_step_plain, tb.reset_where_plain = real
+        tb.bit_step_plain, tb.reset_where_plain, k2.legal_mask_plain = real
 
 
 def _ply_inputs(torch, tb, ro, n, dev, gen):
@@ -1117,8 +1177,10 @@ def _train_phase(torch, tb, legal_mask, step, timing, dev):
         require(m["step_launches"] > 0 and m["reset_launches"] > 0,
                 "the ply kernel was not launched in collection")
     require(all(0.0 <= r <= 1.0 for r in rates.values()), "bad win rate")
-    for kname, count in out.items():
-        require(count > 0, f"{kname}: not launched on the training path")
+    for kname in ("bit_step_launches", "reset_launches"):
+        require(out[kname] > 0, f"{kname}: not launched on the training "
+                "path")
+    _require_no_k2(out["k2_launches"], "training")
     require(not plain_calls, f"training ran the ply's plain version on the "
             f"card: {plain_calls[:3]}")
     out["update_seconds"] = [m["update_seconds"] for m in records]
@@ -1498,9 +1560,10 @@ def _lookahead_train_phase(torch, tb, legal_mask, step, dev):
     for m in records:
         for key in ("value_loss", "action_loss", "entropy"):
             require(math.isfinite(m[key]), f"{key} is not finite: {m[key]}")
-    for kname, count in out.items():
-        require(count > 0, f"{kname}: not launched on the lookahead "
+    for kname in ("bit_step_launches", "reset_launches"):
+        require(out[kname] > 0, f"{kname}: not launched on the lookahead "
                 "training path")
+    _require_no_k2(out["k2_launches"], "lookahead training")
     require(not plain_calls, f"lookahead training ran the ply's plain "
             f"version on the card: {plain_calls[:3]}")
     # The random openings' share of a plain collection: the trained net,
@@ -1595,9 +1658,9 @@ def _eval_checkpoint_phase(torch, tb, legal_mask, step, net, dev):
             "the tournament lost games")
     out = dict(k2_launches=legal_mask.launches,
                bit_step_launches=step.bit_step.launches)
-    for kname, count in out.items():
-        require(count > 0, f"{kname}: not launched on the eval_checkpoint "
-                "path")
+    require(out["bit_step_launches"] > 0, "bit_step: not launched on the "
+            "eval_checkpoint path")
+    _require_no_k2(out["k2_launches"], "eval_checkpoint")
     require(not plain_calls, f"eval_checkpoint ran the ply's plain version "
             f"on the card: {plain_calls[:3]}")
     say(f"[eval_checkpoint] ok: every game accounted for; wall seconds "
@@ -1648,12 +1711,18 @@ def _fp32_check(torch, net, dev):
         f"{FP32_ATOL})")
 
 
-def _train_reference_phase(torch, dev):
+def _train_reference_phase(torch, dev, board_size=8,
+                           label="train_reference"):
     """ppo_update on the card and on the CPU from the same params, the
-    same rollout (collected on the card) and the same shuffle words: once
-    as a single optimizer step, once with the trainer's epochs and
-    minibatches.  The latter is also run on the card with a planted fault
-    (PLANTS) to show that its tolerance sees such a fault."""
+    same rollout (collected on the card, on a ``board_size`` board) and
+    the same shuffle words: once as a single optimizer step, once with the
+    trainer's epochs and minibatches.  The latter is also run on the card
+    with a planted fault (PLANTS) to show that its tolerance sees such a
+    fault.  Off 8x8 the CPU replays the card's ReLU masks
+    (``_relu_masks``): there a ReLU input that the two round to opposite
+    signs was seen to move the one-step deltas by 5e-5 and the 4 x 4
+    per-leaf reading to 11% of a leaf's largest delta, so the reference
+    holds the rest of the computation to the same bounds."""
     from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, Transition,
                                                     make_optimizer,
                                                     ppo_update)
@@ -1663,10 +1732,11 @@ def _train_reference_phase(torch, dev):
     from gymothelloenv_tpu_torch.train.self_play import (Draws,
                                                          collect_rollout,
                                                          selfplay_init)
-    say(f"[train_reference] start: ppo_update card vs CPU, wide2, "
-        f"N={REF_ENVS}, T={REF_STEPS}: one step, then 4 epochs x 4 "
-        "minibatches, then the latter with each planted fault on the card")
-    env_cfg = EnvConfig(num_disk_as_reward=True)
+    say(f"[{label}] start: ppo_update card vs CPU, wide2, board "
+        f"{board_size}, N={REF_ENVS}, T={REF_STEPS}: one step, then 4 "
+        "epochs x 4 minibatches, then the latter with each planted fault "
+        "on the card")
+    env_cfg = EnvConfig(board_size=board_size, num_disk_as_reward=True)
     net = make_network(env_cfg, HIDDEN, WIDTH_MULT, SEED + 1, dev).train()
     draws = Draws(torch.Generator(dev).manual_seed(SEED + 1))
     sp = selfplay_init(net, env_cfg, REF_ENVS, draws)
@@ -1676,21 +1746,32 @@ def _train_reference_phase(torch, dev):
                                     vars(rollout).items()}), boot.cpu())}
     start = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
 
-    def update(device, cfg, word_seed=SEED + 1):
-        """(param deltas on the CPU, metrics) of one ppo_update."""
+    replay = board_size != 8
+    flips = []
+
+    def update(device, cfg, word_seed=SEED + 1, masks=None):
+        """(param deltas on the CPU, metrics) of one ppo_update; with
+        ``masks`` the card records its ReLU masks there and the CPU
+        replays them."""
         words = draw_words(torch.Generator().manual_seed(word_seed),
                            cfg.ppo_epochs)
         n = make_network(env_cfg, HIDDEN, WIDTH_MULT, SEED + 1,
                          device).train()
         n.load_state_dict(start)
-        m = ppo_update(n, make_optimizer(cfg, n.parameters()),
-                       *inputs[device], words, cfg)
+        with (_relu_masks(torch, masks, device != "cpu", flips)
+              if masks is not None else contextlib.nullcontext()):
+            m = ppo_update(n, make_optimizer(cfg, n.parameters()),
+                           *inputs[device], words, cfg)
         return ({k: v.cpu() - start[k] for k, v in n.state_dict().items()},
                 {k: float(v) for k, v in m.items()})
 
+    def pair(cfg):
+        masks = [] if replay else None
+        return update(dev, cfg, masks=masks), update("cpu", cfg, masks=masks)
+
     one = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY, num_updates=1,
                     ppo_epochs=1, num_mini_batch=1)
-    (d_card, m_card), (d_cpu, m_cpu) = update(dev, one), update("cpu", one)
+    (d_card, m_card), (d_cpu, m_cpu) = pair(one)
     merr1 = _check_metrics(m_card, m_cpu)
     err1 = max(float((d_card[k] - d_cpu[k]).abs().max()) for k in start)
     big1 = max(float(d.abs().max()) for d in d_cpu.values())
@@ -1698,21 +1779,34 @@ def _train_reference_phase(torch, dev):
     require(err1 <= REF_ONE_STEP_ATOL,
             f"one step: card vs CPU param deltas differ by {err1:.3e} > "
             f"{REF_ONE_STEP_ATOL}")
+    if replay:
+        # The same step without the replay, for the record (not gated).
+        (d_free, _), (d_free_cpu, _) = update(dev, one), update("cpu", one)
+        free = max(float((d_free[k] - d_free_cpu[k]).abs().max())
+                   for k in start)
+        say(f"[{label}] one step: the CPU replayed the card's ReLU masks, "
+            f"{sum(flips)} of whose inputs the CPU rounds to the other "
+            f"sign; without the replay the deltas differ by {free:.3e}")
 
     cfg = PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
                     num_updates=TRAIN_UPDATES)
-    (d_card, m_card), (d_cpu, m_cpu) = update(dev, cfg), update("cpu", cfg)
+    (d_card, m_card), (d_cpu, m_cpu) = pair(cfg)
     merr = _check_metrics(m_card, m_cpu)
     rel = _leaf_rel(d_card, d_cpu)
     worst = max(rel, key=rel.get)
+    if replay:
+        free = max(_leaf_rel(update(dev, cfg)[0],
+                             update("cpu", cfg)[0]).values())
+        say(f"[{label}] 4 x 4 minibatches without the replay, for the "
+            f"record (not gated): per-leaf reading {free:.3e}")
     planted = {}
     for name, change, word_seed in PLANTS:
         d_bad, _ = update(dev, dataclasses.replace(cfg, **change), word_seed)
         planted[name] = max(_leaf_rel(d_bad, d_cpu).values())
-    say(f"[train_reference] 4 x 4 minibatches, per-leaf |card - CPU| over "
+    say(f"[{label}] 4 x 4 minibatches, per-leaf |card - CPU| over "
         f"the leaf's largest delta: "
         + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()))
-    say("[train_reference] planted faults on the card, the same reading: "
+    say(f"[{label}] planted faults on the card, the same reading: "
         + ", ".join(f"{k} {v:.3e}" for k, v in planted.items()))
     require(rel[worst] <= REF_PARAM_RTOL,
             f"card vs CPU deltas of {worst} differ by {rel[worst]:.3e} of "
@@ -1721,13 +1815,39 @@ def _train_reference_phase(torch, dev):
         require(reading > REF_PARAM_RTOL,
                 f"the planted fault '{name}' reads {reading:.3e}, inside "
                 f"the tolerance {REF_PARAM_RTOL}: the check cannot see it")
-    say(f"[train_reference] ok: one step: deltas (max {big1:.3e}) agree to "
+    say(f"[{label}] ok: one step: deltas (max {big1:.3e}) agree to "
         f"{err1:.3e} (atol {REF_ONE_STEP_ATOL}), metrics to {merr1:.3e}; "
         f"4 x 4 minibatches: deltas agree to {rel[worst]:.3e} of the "
         f"largest delta of each leaf (worst {worst}; rtol "
         f"{REF_PARAM_RTOL}), every planted fault above it (least "
         f"{min(planted.values()):.3e}), metrics to {merr:.3e} (rtol "
         f"{REF_METRIC_RTOL} + atol {REF_METRIC_ATOL}); fp32, TF32 off")
+    return dict(one_step=err1, per_leaf=rel[worst],
+                least_planted=min(planted.values()), relu_flips=sum(flips))
+
+
+@contextlib.contextmanager
+def _relu_masks(torch, masks, record, flips):
+    """While the block runs, ``torch.relu`` records each call's mask
+    (``record``: appended to ``masks`` in call order) or replays the
+    recorded ones (``relu(x)`` is ``x * mask``, its gradient ``mask``),
+    adding to ``flips`` the mask entries this device's own inputs would
+    have set otherwise."""
+    real, replayed = torch.relu, iter(masks)
+
+    def relu(x):
+        if record:
+            masks.append((x > 0).detach())
+            return real(x)
+        mask = next(replayed).to(x.device)
+        flips.append(int((mask != (x > 0)).sum()))
+        return x * mask.to(x.dtype)
+
+    torch.relu = relu
+    try:
+        yield
+    finally:
+        torch.relu = real
 
 
 def _leaf_rel(d_card, d_cpu):
@@ -1800,8 +1920,9 @@ def _slice_trainer(torch, tb, legal_mask, step, dev, label, ppo_cfg,
         for key in ("value_loss", "action_loss", "entropy"):
             require(math.isfinite(m[key]), f"[{label}] {key} is not finite: "
                     f"{m[key]}")
-    for kname, count in counts.items():
-        require(count > 0, f"[{label}] {kname}: not launched")
+    for kname in ("bit_step_launches", "reset_launches"):
+        require(counts[kname] > 0, f"[{label}] {kname}: not launched")
+    _require_no_k2(counts["k2_launches"], label)
     require(not plain_calls, f"[{label}] ran the ply's plain version on the "
             f"card: {plain_calls[:3]}")
     counts["seconds"] = {k: [m[k] for m in records] for k in (
@@ -1811,11 +1932,9 @@ def _slice_trainer(torch, tb, legal_mask, step, dev, label, ppo_cfg,
 
 def _recurrent_train_phase(torch, tb, legal_mask, step, timing, dev):
     """The rec_wide2 recipe for REC_UPDATES updates; the ply kernel and
-    reset_where on its collector's state and K2 at its reset's boards,
-    against plain and timed; then ppo_update_recurrent card vs CPU
-    (``_recurrent_reference``)."""
+    reset_where on its collector's state, against plain and timed; then
+    ppo_update_recurrent card vs CPU (``_recurrent_reference``)."""
     from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
-    from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask_plain
     from gymothelloenv_tpu_torch.train.ppo_trainer import SelfPlayConfig
     say(f"[recurrent_train] start: PPOSelfPlayTrainer --recurrent, "
         f"width_mult {REC_WIDTH}, hidden {REC_HIDDEN}, N={REC_ENVS}, "
@@ -1837,22 +1956,15 @@ def _recurrent_train_phase(torch, tb, legal_mask, step, timing, dev):
                  tb.bit_step_plain(b, action, True, True, do=live))
     e = max(e, _ply_err(torch, tb, step.reset_where(b, b.terminated),
                         tb.reset_where_plain(b, b.terminated)))
-    fresh = tb.opening(REC_ENVS, dev)
-    require(e == 0 and torch.equal(
-        legal_mask(fresh.black, fresh.white),
-        legal_mask_plain(fresh.black, fresh.white)),
-        f"a kernel on the recurrent collector's state differs from plain "
-        f"({e})")
+    require(e == 0, f"a kernel on the recurrent collector's state differs "
+            f"from plain ({e})")
     out["ply_ms"] = timing.device_ms(
         lambda: step.bit_step(b, action, True, True, do=live), 200)
     out["reset_ms"] = timing.device_ms(
         lambda: step.reset_where(b, b.terminated), 200)
-    out["k2_ms"] = timing.device_ms(
-        lambda: legal_mask(fresh.black, fresh.white), 200)
     say(f"[recurrent_train] kernels on its states, exact vs plain: the ply "
         f"kernel {out['ply_ms']:.5f} ms, reset_where {out['reset_ms']:.5f} "
-        f"ms at {REC_ENVS} games, K2 {out['k2_ms']:.5f} ms at a "
-        f"{REC_ENVS}-game bit_reset (device time); launches bit_step "
+        f"ms at {REC_ENVS} games (device time); launches bit_step "
         f"{out['bit_step_launches']}, reset_where {out['reset_launches']}, "
         f"K2 {out['k2_launches']}, no plain ply, TF32 off")
     out["reference"] = _recurrent_reference(torch, dev)
@@ -2171,9 +2283,9 @@ def _recurrent_eval_phase(torch, tb, ro, legal_mask, step, dev, gen):
                         f"eval_checkpoint {label} lost games")
     out = dict(k2_launches=legal_mask.launches,
                bit_step_launches=step.bit_step.launches)
-    for kname, count in out.items():
-        require(count > 0, f"{kname}: not launched on the recurrent eval "
-                "path")
+    require(out["bit_step_launches"] > 0, "bit_step: not launched on the "
+            "recurrent eval path")
+    _require_no_k2(out["k2_launches"], "recurrent eval")
     require(not plain_calls, f"the recurrent eval ran the ply's plain "
             f"version on the card: {plain_calls[:3]}")
     state, _, _, _ = _ply_inputs(torch, tb, ro, REC_LA_N, dev, gen)
@@ -2204,6 +2316,427 @@ def _recurrent_eval_phase(torch, tb, ro, legal_mask, step, dev, gen):
         f"{int(held.sum())} held by the margin, {same} equal, values to "
         f"{val_err:.2e}, state to {h_err:.2e}, {per_decision} B1 launch a "
         "decision")
+    return out
+
+
+def _plane_states(torch, eng, cfg, n, dev, gen, plies):
+    """``n`` plane games on ``dev`` after up to ``plies`` random plies
+    each (each game stops at its own ply count; ended games stay)."""
+    from gymothelloenv_tpu_torch.core import bitboard as tb
+    state = eng.reset_batch(n, cfg, dev)
+    stop = torch.randint(0, plies + 1, (n,), generator=gen, device=dev)
+    for ply in range(plies):
+        t = tb.uniform_index(eng.legal_count(state), gen)
+        live = ~state.terminated & (stop > ply)
+        state = eng.step_where(state, eng.random_legal(state, t), live, cfg)
+    return state
+
+
+def _plane_phase(torch, tb, step, dev):
+    """PlaneEngine on the card: PLANE_N games of random play to the end at
+    each of PLANE_SIZES, every state field equal to the CPU's at every
+    ply; eager kernels (torch.profiler) and ms of one plane ply at B = 6,
+    8 (forced) and 10; then on 8x8 the force_plane collector against the
+    BitEngine collector from the same draws, transition for
+    transition."""
+    from torch.profiler import ProfilerActivity, profile
+    from gymothelloenv_tpu_torch.core.engine import PlaneEngine
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.scripts.profile_train_step import device_us
+    from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
+    from gymothelloenv_tpu_torch.train.self_play import (Draws,
+                                                         collect_rollout,
+                                                         selfplay_init)
+    say(f"[plane] start: PlaneEngine, {PLANE_N} games of random play to "
+        f"the end at B = {PLANE_SIZES}, card vs CPU every ply; a plane ply "
+        f"profiled at B = 6, 8 (forced), 10; force_plane vs BitEngine "
+        f"collection on 8x8, wide2, N {PLANE_FP_ENVS}, T {PLANE_FP_STEPS}")
+    eng = PlaneEngine()
+    fields = ("board", "turn", "legal", "terminated", "winner")
+    out = {"plies": {}, "winners": {}, "kernels_a_ply": {}, "ms_a_ply": {},
+           "device_share": {}}
+    step.bit_step.launches = 0
+    for b in PLANE_SIZES:
+        cfg = EnvConfig(board_size=b)
+        gen = torch.Generator(dev).manual_seed(SEED + b)
+        card = eng.reset_batch(PLANE_N, cfg, dev)
+        cpu = eng.reset_batch(PLANE_N, cfg, "cpu")
+        plies = 0
+        while not bool(card.terminated.all()):
+            require(plies < b * b, f"B = {b}: games outlive the board")
+            t = tb.uniform_index(eng.legal_count(card), gen)
+            action, live = eng.random_legal(card, t), ~card.terminated
+            card = eng.step_where(card, action, live, cfg)
+            cpu = eng.step_where(cpu, action.cpu(), live.cpu(), cfg)
+            plies += 1
+            for f in fields:
+                require(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)),
+                        f"B = {b}: the card's {f} differs from the CPU's at "
+                        f"ply {plies}")
+        out["plies"][b] = plies
+        out["winners"][b] = [int((card.winner == w).sum()) for w in (-1, 0, 1)]
+    require(step.bit_step.launches == 0, "B1 ran on a board other than 8x8")
+    for b in (6, 8, 10):
+        cfg = EnvConfig(board_size=b)
+        gen = torch.Generator(dev).manual_seed(SEED + 20 + b)
+        state = _plane_states(torch, eng, cfg, PLANE_N, dev, gen, PLANE_WARM)
+        t = tb.uniform_index(eng.legal_count(state), gen)
+        live = ~state.terminated
+
+        def ply():
+            return eng.step_where(state, eng.random_legal(state, t), live,
+                                  cfg)
+        ply()
+        torch.cuda.synchronize()
+        before = step.bit_step.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ply()
+            torch.cuda.synchronize()
+        b1 = step.bit_step.launches - before
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not events:
+            events = [e for e in prof.key_averages() if device_us(e) > 0]
+        kernels = sum(e.count for e in events)
+        device_s = sum(device_us(e) for e in events) / 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PLANE_TIME_REPS):
+            ply()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / PLANE_TIME_REPS
+        require(kernels > 0, f"B = {b}: the profiler saw no kernel")
+        require(b1 == (1 if b == 8 else 0), f"B = {b}: {b1} B1 launches a "
+                "plane ply")
+        out["kernels_a_ply"][b], out["ms_a_ply"][b] = kernels, ms
+        out["device_share"][b] = 1e3 * device_s / ms
+    # force_plane on 8x8 against the bit engine, the same draws.
+    cfg = EnvConfig(num_disk_as_reward=True)
+    net = make_network(cfg, HIDDEN, WIDTH_MULT, SEED, dev).eval()
+    runs = {}
+    for force in (False, True):
+        step.bit_step.launches = 0
+        step.reset_where.launches = 0
+        draws = Draws(torch.Generator(dev).manual_seed(SEED + 3))
+        with _no_plain(tb) as plain_calls:
+            sp = selfplay_init(net, cfg, PLANE_FP_ENVS, draws,
+                               force_plane=force)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rolls = []
+            for _ in range(PLANE_FP_ROLLOUTS):
+                sp, roll, _ = collect_rollout(net, sp, cfg, PLANE_FP_STEPS,
+                                              draws, force_plane=force)
+                rolls.append(roll)
+            torch.cuda.synchronize()
+        require(not plain_calls, f"force_plane={force} ran a plain version "
+                f"on the card: {plain_calls[:3]}")
+        runs[force] = dict(rolls=rolls,
+                           seconds=(time.perf_counter() - t0)
+                           / PLANE_FP_ROLLOUTS,
+                           b1=step.bit_step.launches,
+                           resets=step.reset_where.launches)
+    bit, plane = runs[False], runs[True]
+    for got, want in zip(plane["rolls"], bit["rolls"]):
+        for f in ("obs", "action", "reward", "done", "legal", "logp",
+                  "value"):
+            require(torch.equal(getattr(got, f), getattr(want, f)),
+                    f"force_plane collection differs from BitEngine's in "
+                    f"{f}")
+    ends = sum(int(r.done.sum()) for r in bit["rolls"])
+    require(ends > 0, "no game ended in the force_plane comparison")
+    require(plane["b1"] == bit["b1"] > 0 and plane["resets"] == 0,
+            f"B1 launches {plane['b1']} (plane) vs {bit['b1']} (bit), "
+            f"reset_where {plane['resets']} on planes")
+    out.update(bit_step_launches=plane["b1"] + bit["b1"],
+               reset_launches=bit["resets"], k2_launches=0,
+               collect_seconds={"bit": bit["seconds"],
+                                "plane": plane["seconds"]})
+    say(f"[plane] ok: card = CPU at every ply; plies to the end "
+        f"{out['plies']}, (black, draw, white) wins {out['winners']}; a "
+        f"plane ply at N {PLANE_N}: eager kernels {out['kernels_a_ply']}, "
+        "ms " + ", ".join(f"B={k} {v:.3f}" for k, v in
+                          out["ms_a_ply"].items())
+        + ", device share " + ", ".join(
+            f"B={k} {100 * v:.1f}%" for k, v in out["device_share"].items())
+        + f" (B=8 forced: one B1 launch a ply); force_plane collection = "
+        f"BitEngine's on all {PLANE_FP_ROLLOUTS} x {PLANE_FP_STEPS} x "
+        f"{PLANE_FP_ENVS} transitions ({ends} episode ends), B1 launches "
+        f"{plane['b1']} on each (one a ply), reset_where {bit['resets']} "
+        f"(bit) and 0 (plane); collect a rollout {bit['seconds']:.3f} s "
+        f"(bit), {plane['seconds']:.3f} s (plane)")
+    return out
+
+
+def _perft_oracle():
+    """The C++ oracle native/othello_perft.cpp, built with g++ into the
+    ignored build directory, as tests/test_perft.py builds it."""
+    import ctypes
+    build = os.path.join(HERE, "gymothelloenv_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    so = os.path.join(build, "libothello_perft.so")
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-o", so,
+                    os.path.join(HERE, "native", "othello_perft.cpp")],
+                   check=True, timeout=120)
+    lib = ctypes.CDLL(so)
+    lib.othello_perft.restype = ctypes.c_ulonglong
+    lib.othello_perft.argtypes = [ctypes.c_int]
+    lib.othello_perft_from.restype = ctypes.c_ulonglong
+    lib.othello_perft_from.argtypes = [ctypes.c_uint64, ctypes.c_uint64,
+                                       ctypes.c_int]
+    return lib
+
+
+def _perft_phase(torch, tb, legal_mask, step, timing, dev):
+    """core/perft.py on the card, the counts of K2 and B1 from 0: depths
+    1-PERFT_DEPTH from the opening, then perft_from on midgame positions,
+    against the published counts and the C++ oracle; then K2 at perft's
+    largest level against its plain version, timed."""
+    from gymothelloenv_tpu_torch.core import perft
+    from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask_plain
+    say(f"[perft] start: depths 1-{PERFT_DEPTH} from the opening and "
+        f"perft_from at depths {PERFT_FROM_DEPTHS} on {PERFT_MIDGAME} "
+        "midgame positions, on the card against the C++ oracle")
+    t0 = time.perf_counter()
+    oracle = _perft_oracle()
+    build_s = time.perf_counter() - t0
+    real_k2 = perft.legal_mask
+    largest = {}
+
+    def recorded(mine, opp):
+        if mine.shape[0] > largest.get("n", 0):
+            largest.update(n=mine.shape[0], inputs=(mine, opp))
+        return real_k2(mine, opp)
+
+    seconds, oracle_s, levels = {}, {}, 0
+    positions = _perft_positions(torch, tb,
+                                 torch.Generator().manual_seed(SEED + 9))
+    # Main path: the counts of K2 and the ply kernel start at 0 here.
+    legal_mask.launches = 0
+    step.bit_step.launches = 0
+    perft.legal_mask = recorded
+    try:
+        with _no_plain(tb) as plain_calls:
+            for d in range(1, PERFT_DEPTH + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = perft.perft(d, device=dev)
+                torch.cuda.synchronize()
+                seconds[d] = time.perf_counter() - t0
+                levels += d
+                t0 = time.perf_counter()
+                want = int(oracle.othello_perft(d))
+                oracle_s[d] = time.perf_counter() - t0
+                require(got == want and PERFT_KNOWN.get(d, want) == want,
+                        f"perft({d}) = {got}, oracle {want}, published "
+                        f"{PERFT_KNOWN.get(d)}")
+            for cur, opp in positions:
+                for d in PERFT_FROM_DEPTHS:
+                    got = perft.perft_from(cur, opp, d, device=dev)
+                    want = int(oracle.othello_perft_from(cur, opp, d))
+                    levels += d
+                    require(got == want, f"perft_from({cur:#x}, {opp:#x}, "
+                            f"{d}) = {got}, oracle {want}")
+    finally:
+        perft.legal_mask = real_k2
+    out = dict(k2_launches=legal_mask.launches,
+               bit_step_launches=step.bit_step.launches)
+    require(not plain_calls, f"perft ran a plain version on the card: "
+            f"{plain_calls[:3]}")
+    require(out["k2_launches"] == out["bit_step_launches"] == levels,
+            f"K2 {out['k2_launches']} and B1 {out['bit_step_launches']} "
+            f"launches for {levels} levels, expected one each a level")
+    mine, opp = largest["inputs"]
+    got, want = legal_mask(mine, opp), legal_mask_plain(mine, opp)
+    n = mine.shape[0]
+    k2 = dict(boards=n, max_abs_err=word_bits_err(tb, got, want),
+              ms=timing.device_ms(lambda: legal_mask(mine, opp), 100),
+              call_ms=timing.call_ms(lambda: legal_mask(mine, opp), 100),
+              plain_ms=timing.call_ms(lambda: legal_mask_plain(mine, opp),
+                                      5))
+    k2["bound_ms"], k2["bound_by"] = bound_ms(24 * n, K2_OPS_PER_BOARD * n)
+    require(k2["max_abs_err"] == 0, "K2 differs from plain at perft's level")
+    out.update(seconds=seconds, oracle_seconds=oracle_s, k2=k2,
+               positions=len(positions), oracle_build_seconds=build_s)
+    say(f"[perft] ok: depths 1-{PERFT_DEPTH} equal the published counts "
+        f"and the oracle, perft_from equal on {len(positions)} positions at "
+        f"depths {PERFT_FROM_DEPTHS}; K2 {out['k2_launches']} and B1 "
+        f"{out['bit_step_launches']} launches ({levels} levels), no plain "
+        "ply; seconds a depth "
+        + ", ".join(f"{d}: {v:.3f}" for d, v in seconds.items())
+        + " (oracle at 9: "
+        f"{oracle_s[PERFT_DEPTH]:.3f} s); K2 at {n} boards (perft's "
+        f"largest level) exact: {k2['ms']:.5f} ms on the device, "
+        f"{k2['call_ms']:.4f} ms a call, plain {k2['plain_ms']:.3f} ms, "
+        f"bound {k2['bound_ms']:.5f} ms ({k2['bound_by']})")
+    return out
+
+
+def _perft_positions(torch, tb, gen):
+    """PERFT_MIDGAME positions (side to move, other side) as unsigned
+    words, after 20-44 random plies from the opening on the CPU; games
+    that end are skipped."""
+    n = 4 * PERFT_MIDGAME
+    state = tb.bit_reset(n, "cpu")
+    stop = torch.randint(20, 45, (n,), generator=gen)
+    for ply in range(44):
+        live = ~state.terminated & (stop > ply)
+        t = tb.uniform_index(tb.popcount(state.legal), gen)
+        state = tb.bit_step_plain(state, tb.random_legal_bit(state.legal, t),
+                                  do=live).state
+    out = []
+    for i in range(n):
+        if bool(state.terminated[i]) or len(out) == PERFT_MIDGAME:
+            continue
+        mine, theirs = int(state.black[i]), int(state.white[i])
+        if int(state.turn[i]) == 1:
+            mine, theirs = theirs, mine
+        out.append((mine & (2 ** 64 - 1), theirs & (2 ** 64 - 1)))
+    require(len(out) == PERFT_MIDGAME, "too few midgame positions")
+    return out
+
+
+def _plane_train_phase(torch, tb, legal_mask, step, dev):
+    """cli.ppo_self_play --board-size PLANE_TRAIN_BOARD at wide2 (N 1024,
+    T 64, TRAIN_UPDATES updates) from both TF32 flags on, with the counts
+    of K2 and B1 from 0 (none may run off 8x8); then its ppo_update card
+    vs CPU (``_train_reference_phase`` on that board)."""
+    from gymothelloenv_tpu_torch.cli import ppo_self_play
+    from gymothelloenv_tpu_torch.core.state import OthelloState
+    b = PLANE_TRAIN_BOARD
+    say(f"[plane_train] start: ppo_self_play --board-size {b} --width-mult "
+        f"{WIDTH_MULT} --hidden-size {HIDDEN} --num-envs {TRAIN_ENVS} "
+        f"--num-steps {TRAIN_STEPS} --num-updates {TRAIN_UPDATES}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        # Main path: the counts of K2 and the ply kernel start at 0 here.
+        legal_mask.launches = 0
+        step.bit_step.launches = 0
+        step.reset_where.launches = 0
+        t0 = time.perf_counter()
+        trainer = ppo_self_play.main([
+            "--board-size", str(b), "--width-mult", str(WIDTH_MULT),
+            "--hidden-size", str(HIDDEN), "--num-envs", str(TRAIN_ENVS),
+            "--num-steps", str(TRAIN_STEPS), "--num-updates",
+            str(TRAIN_UPDATES), "--lr", str(TRAIN_LR), "--entropy-coef",
+            str(TRAIN_ENTROPY), "--log-every", "1", "--test-interval",
+            str(10 ** 9), "--num-test-games", str(TRAIN_TEST_GAMES),
+            "--seed", str(SEED), "--log-dir", tmp, "--device", DEVICE_TYPE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    require(flags == (False, False), f"[plane_train] TF32 on: {flags}")
+    require(len(records) == TRAIN_UPDATES, "the trainer skipped an update")
+    for m in records:
+        for key in ("value_loss", "action_loss", "entropy"):
+            require(math.isfinite(m[key]), f"[plane_train] {key} is not "
+                    f"finite: {m[key]}")
+    env = trainer.sp_state.env
+    require(isinstance(env, OthelloState) and env.board.shape[1:] == (b, b)
+            and env.board.device.type == "cuda"
+            and trainer.net.logits.out_features == b * b,
+            "[plane_train] not on the card's plane engine at the board")
+    out = dict(k2_launches=legal_mask.launches,
+               bit_step_launches=step.bit_step.launches,
+               reset_launches=step.reset_where.launches, wall_seconds=wall,
+               collect_seconds=[m["collect_seconds"] for m in records],
+               update_seconds=[m["update_seconds"] for m in records],
+               transitions_per_sec=[m["transitions_per_sec"]
+                                    for m in records])
+    require(out["k2_launches"] == out["bit_step_launches"]
+            == out["reset_launches"] == 0, "a kernel of the 8x8 path ran "
+            "on the 6x6 board")
+    say(f"[plane_train] ok: {TRAIN_UPDATES} updates and the final 200-game "
+        f"evals in {wall:.2f} s; collect "
+        + ", ".join(f"{x:.3f}" for x in out["collect_seconds"])
+        + " s, update " + ", ".join(f"{x:.3f}" for x in
+                                    out["update_seconds"])
+        + " s, transitions_per_sec " + ", ".join(
+            f"{x:.1f}" for x in out["transitions_per_sec"])
+        + "; losses finite, TF32 off, no B1 or K2 launch")
+    out["reference"] = _train_reference_phase(torch, dev, b, "plane_train")
+    return out
+
+
+def _plane_eval_phase(torch, tb, legal_mask, step, dev):
+    """cli.tournament --board-size 10 (greedy vs rand, maximin-1 vs
+    greedy) and 6 (maximin-2 vs greedy), cli.eval_checkpoint --board-size
+    6 on a seeded board-6 wide2 checkpoint vs maximin-1, PLANE_EVAL_GAMES
+    games a run; then plane maximin card vs CPU on PLANE_MAXIMIN_N states
+    per (board, depth)."""
+    from gymothelloenv_tpu_torch.cli import eval_checkpoint, tournament
+    from gymothelloenv_tpu_torch.core.engine import PlaneEngine
+    from gymothelloenv_tpu_torch.core.state import (EnvConfig, OthelloState,
+                                                    index_games)
+    from gymothelloenv_tpu_torch.models.convert import flax_tree
+    from gymothelloenv_tpu_torch.policies.scripted import maximin_action
+    from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
+    from gymothelloenv_tpu_torch.utils.checkpoint import save_checkpoint
+    say(f"[plane_eval] start: tournament --board-size 10 greedy vs rand and "
+        f"maximin-1 vs greedy, --board-size 6 maximin-2 vs greedy; "
+        f"eval_checkpoint --board-size 6 (seeded wide2) vs maximin-1; "
+        f"{PLANE_EVAL_GAMES} games a run; plane maximin card vs CPU on "
+        f"{PLANE_MAXIMIN_N} states at (board, depth) {PLANE_MAXIMIN}")
+    seconds, results = {}, {}
+    net = make_network(EnvConfig(board_size=6), HIDDEN, WIDTH_MULT, SEED,
+                       dev).eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "board6_wide2.msgpack")
+        save_checkpoint(path, 0, flax_tree(net))
+        # Main path: the counts of K2 and the ply kernel start at 0 here.
+        legal_mask.launches = 0
+        step.bit_step.launches = 0
+        for b, black, white in ((10, "greedy", "rand"),
+                                (10, "maximin-1", "greedy"),
+                                (6, "maximin-2", "greedy")):
+            label = f"B={b} {black} vs {white}"
+            t0 = time.perf_counter()
+            res = tournament.main([
+                "--board-size", str(b), "--black", black, "--white", white,
+                "--games", str(PLANE_EVAL_GAMES), "--seed", str(SEED),
+                "--device", DEVICE_TYPE])
+            seconds[label] = time.perf_counter() - t0
+            results[label] = res[(black, white)]
+            require(sum(results[label]) == PLANE_EVAL_GAMES,
+                    f"tournament {label} lost games")
+        t0 = time.perf_counter()
+        wdl = eval_checkpoint.main([
+            "--board-size", "6", "--load", path, "--opponent", "maximin-1",
+            "--games", str(PLANE_EVAL_GAMES), "--seed", str(SEED),
+            "--device", DEVICE_TYPE])
+        seconds["B=6 eval_checkpoint vs maximin-1"] = (time.perf_counter()
+                                                       - t0)
+        results["B=6 eval_checkpoint vs maximin-1"] = wdl
+        require(sum(wdl) == PLANE_EVAL_GAMES, "eval_checkpoint lost games")
+    out = dict(k2_launches=legal_mask.launches,
+               bit_step_launches=step.bit_step.launches)
+    require(out["k2_launches"] == out["bit_step_launches"] == 0,
+            "a kernel of the 8x8 path ran on another board")
+    eng, same = PlaneEngine(), {}
+    for b, depth in PLANE_MAXIMIN:
+        gen = torch.Generator(dev).manual_seed(SEED + 40 + b)
+        state = _plane_states(torch, eng, EnvConfig(board_size=b),
+                              PLANE_MAXIMIN_N, dev, gen, b * b - 8)
+        state = index_games(state, ~state.terminated)
+        got = maximin_action(state, depth)
+        want = maximin_action(OthelloState(**{
+            k: v.cpu() for k, v in vars(state).items()}), depth)
+        require(torch.equal(got.cpu(), want), f"plane maximin-{depth} at "
+                f"B = {b}: card and CPU decisions differ")
+        same[(b, depth)] = int(got.shape[0])
+    out.update(seconds=seconds, results=results, maximin_states=same)
+    say(f"[plane_eval] ok: every game accounted for; "
+        + ", ".join(f"{k} {results[k]} in {v:.2f} s"
+                    for k, v in seconds.items())
+        + "; plane maximin card = CPU on "
+        + ", ".join(f"{n} live states at B={b} depth {d}"
+                    for (b, d), n in same.items())
+        + "; no B1 or K2 launch")
     return out
 
 

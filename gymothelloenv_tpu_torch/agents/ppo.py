@@ -69,13 +69,13 @@ class PPOConfig:
 class Transition:
     """Rollout slots, shapes (T, N, ...) from the collector (or flat
     minibatch rows)."""
-    obs: torch.Tensor     # int8 (..., 4, 8, 8) {0,1} planes
+    obs: torch.Tensor     # int8 (..., 4, B, B) {0,1} planes
     action: torch.Tensor  # int64
     logp: torch.Tensor    # float32 behaviour log-prob
     value: torch.Tensor   # float32 behaviour value estimate
     reward: torch.Tensor  # float32
     done: torch.Tensor    # bool: the episode ended with this transition
-    legal: torch.Tensor   # bool (..., 64) legal mask at sample time
+    legal: torch.Tensor   # bool (..., B*B) legal mask at sample time
 
 
 class Optimizer:

@@ -15,7 +15,9 @@ JAX does), and its search is depth 1 only
 half the card's free memory, each segment's states starting at zero, so
 the segments change no game.  The search scores children on the
 training reward scale (disk differences) while the games keep the
-default rules.  Games run on ``--device`` (default ``cuda``).
+default rules.  ``--board-size`` picks the board (the checkpoint must be
+for it); the search is 8x8 only.  Games run on ``--device`` (default
+``cuda``).
 
 Usage:
     python -m gymothelloenv_tpu_torch.cli.eval_checkpoint \
@@ -54,8 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "checkpoint)")
     parser.add_argument("--games", type=int, default=200,
                         help="total games; half as black, half as white")
-    parser.add_argument("--board-size", type=int, default=8, choices=[8],
-                        help="the port's bitboard engine is 8x8 only")
+    parser.add_argument("--board-size", type=int, default=8,
+                        help="board side; 8 runs the bitboard engine, "
+                             "other sizes the plane engine")
     parser.add_argument("--init-rand-steps", type=int, default=10)
     parser.add_argument("--lookahead", action="store_true",
                         help="1-ply value lookahead: expand every legal "

@@ -1,8 +1,9 @@
 """PPO self-play training CLI — the port of ``cli/ppo_self_play.py``:
 mirror or opponent-pool self-play, checkpoints, chained updates, random
 openings, lookahead collection and distillation, recurrent (GRU),
-frame-stacked and time-limited PPO and ``--bf16``, plus ``--device``.  A
-flag of the JAX CLI that is not ported yet is an argparse error.  The net
+frame-stacked and time-limited PPO and ``--bf16``, on any
+``--board-size`` (8 on the bitboard engine, other sizes on planes; the
+lookahead flags are 8x8 only), plus ``--device``.  The net
 computes in float32 with TF32 off (``utils.device.use_float32``), or with
 ``--bf16`` in bfloat16 with float32 parameters and TF32 still off for the
 float32 parts; the first printed line says which.  Checkpoints are the
@@ -19,6 +20,8 @@ Usage:
     python -m gymothelloenv_tpu_torch.cli.ppo_self_play --recurrent \
         --width-mult 2 --num-envs 1024 --num-steps 32 --lr 2.5e-4 \
         --entropy-coef 0.01 --checkpoint data/selfplay/ppo_rec_{step}.msgpack
+    python -m gymothelloenv_tpu_torch.cli.ppo_self_play --board-size 6 \
+        --width-mult 2 --hidden-size 1024 --num-envs 1024
     python -m gymothelloenv_tpu_torch.cli.ppo_self_play --device cpu \
         --num-envs 16 --num-steps 8 --num-updates 2 --hidden-size 32
 """
@@ -41,8 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the games, net and update "
                              "(cuda or cpu)")
-    parser.add_argument("--board-size", type=int, default=8, choices=[8],
-                        help="the port's bitboard engine is 8x8 only")
+    parser.add_argument("--board-size", type=int, default=8,
+                        help="board side; 8 runs the bitboard engine, "
+                             "other sizes the plane engine")
     parser.add_argument("--num-envs", type=int, default=256)
     parser.add_argument("--num-steps", type=int, default=64)
     parser.add_argument("--num-updates", type=int, default=1000)

@@ -1,12 +1,15 @@
 """Round-robin tournament CLI — the port of ``cli/tournament.py``: every
-policy pair plays ``--games`` games on 8x8, the first
-``--init-rand-steps`` plies random, rows play black (the reference README
-table, README.md:36-50).  Games run on ``--device`` (default ``cuda``).
+policy pair plays ``--games`` games on a ``--board-size`` board (default
+8), the first ``--init-rand-steps`` plies random, rows play black (the
+reference README table, README.md:36-50).  Games run on ``--device``
+(default ``cuda``).
 
 Usage:
     python -m gymothelloenv_tpu_torch.cli.tournament --games 100
     python -m gymothelloenv_tpu_torch.cli.tournament --black greedy \
         --white maximin-2 --games 100
+    python -m gymothelloenv_tpu_torch.cli.tournament --board-size 10 \
+        --black maximin-1 --white greedy --games 200
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import time
 
 import torch
 
+from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.policies.scripted import make_policy
 from gymothelloenv_tpu_torch.train.tournament import play_games, tally
 from gymothelloenv_tpu_torch.utils.device import resolve_device
@@ -38,8 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m gymothelloenv_tpu_torch.cli.tournament")
     parser.add_argument("--games", type=int, default=100)
-    parser.add_argument("--board-size", type=int, default=8, choices=[8],
-                        help="the port's bitboard engine is 8x8 only")
+    parser.add_argument("--board-size", type=int, default=8,
+                        help="board side; 8 runs the bitboard engine, "
+                             "other sizes the plane engine")
     parser.add_argument("--init-rand-steps", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--black", type=str, default=None,
@@ -62,6 +67,7 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     generator = torch.Generator(device).manual_seed(args.seed)
+    cfg = EnvConfig(board_size=args.board_size)
     if args.black and args.white:
         pairs = [(args.black, args.white)]
     else:
@@ -79,7 +85,7 @@ def main(argv=None) -> dict:
         t0 = time.time()
         winners = play_games(get(black), get(white), args.games,
                              args.init_rand_steps, generator=generator,
-                             device=device)
+                             cfg=cfg, device=device)
         bw, d, ww = tally(winners)
         dt = time.time() - t0
         results[(black, white)] = (bw, d, ww)

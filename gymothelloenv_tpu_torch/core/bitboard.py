@@ -9,9 +9,9 @@ that smears bit 63, so every right shift goes through :func:`lsr`.
 These are the plain PyTorch versions of the rules; they run on any device.
 The hand-written kernels (``ops/legal_mask.py``, ``ops/rollout.py``,
 ``ops/step.py``) use the same Kogge-Stone floods in ``csrc/bitboard.cuh``.
-``bit_step`` goes through the ply kernel's wrapper (``ops/step.py``), so on
-a CUDA tensor every ply is one launch of that kernel, which floods both
-legal masks itself; ``bit_step_plain`` is its plain version.
+A ply goes through the ply kernel's wrapper ``ops.step.bit_step`` (on a
+CUDA tensor one launch of that kernel, which floods both legal masks
+itself); ``bit_step_plain`` is its plain version.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from gymothelloenv_tpu_torch.core.state import (EnvConfig, terminal_reward,
+from gymothelloenv_tpu_torch.core.state import (select_games,
+                                                terminal_reward,
                                                 terminal_winner)
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
@@ -226,19 +227,6 @@ class BitStepResult:
     done: torch.Tensor        # bool
 
 
-def index_state(state: BitState, idx) -> BitState:
-    """The games ``idx`` (an index tensor or a slice) of ``state``."""
-    return BitState(**{f.name: getattr(state, f.name)[idx]
-                       for f in dataclasses.fields(BitState)})
-
-
-def select_state(cond: torch.Tensor, new: BitState, old: BitState) -> BitState:
-    """Field-wise ``where(cond, new, old)``."""
-    return BitState(**{f.name: torch.where(cond, getattr(new, f.name),
-                                           getattr(old, f.name))
-                       for f in dataclasses.fields(BitState)})
-
-
 def opening(n: int, device) -> BitState:
     """``n`` games at the opening, black to move, made without a kernel
     (the legal mask is the constant ``INIT_LEGAL``)."""
@@ -254,12 +242,26 @@ def opening(n: int, device) -> BitState:
 
 
 def bit_reset(n: int, device=None) -> BitState:
-    """``n`` games at the opening, black to move.  The legal mask comes
-    from the K2 wrapper (one launch on a CUDA tensor)."""
-    from gymothelloenv_tpu_torch.ops.legal_mask import legal_mask as k2
+    """``n`` games at the opening, black to move, on ``device``
+    (``opening``: the legal mask is the constant ``INIT_LEGAL``, so no
+    kernel runs)."""
+    return opening(n, resolve_device(device))
 
-    state = opening(n, resolve_device(device))
-    return dataclasses.replace(state, legal=k2(state.black, state.white))
+
+def from_planes(board: torch.Tensor, turn: torch.Tensor,
+                legal: torch.Tensor, terminated: torch.Tensor,
+                winner: torch.Tensor) -> BitState:
+    """Plane state fields (``board`` int8 (N, 8, 8), ``legal`` bool
+    (N, 64)) -> ``BitState`` (JAX ``from_planes``)."""
+    return BitState(black=pack(board == -1), white=pack(board == 1),
+                    turn=turn, legal=pack(legal.reshape(-1, 8, 8)),
+                    terminated=terminated, winner=winner)
+
+
+def to_board(state: BitState) -> torch.Tensor:
+    """``BitState`` -> signed int8 boards (N, 8, 8) (JAX ``to_board``)."""
+    return (unpack(state.white).to(torch.int8)
+            - unpack(state.black).to(torch.int8))
 
 
 def bit_step_plain(state: BitState, action: torch.Tensor,
@@ -312,7 +314,7 @@ def bit_step_plain(state: BitState, action: torch.Tensor,
     black_cnt = torch.where(is_white, opp_cnt, mine_cnt)
     winner = terminal_winner(terminated, sudden, mover, white_cnt, black_cnt)
     reward = terminal_reward(terminated, sudden, mover, winner, mine_cnt,
-                             opp_cnt, num_disk_as_reward)
+                             opp_cnt, num_disk_as_reward, 64)
 
     new = BitState(black=torch.where(is_white, opp, mine),
                    white=torch.where(is_white, mine, opp),
@@ -320,42 +322,18 @@ def bit_step_plain(state: BitState, action: torch.Tensor,
                    terminated=terminated, winner=winner)
     if do is not None:
         return BitStepResult(
-            state=select_state(do, new, state),
+            state=select_games(do, new, state),
             reward=torch.where(do, reward, torch.zeros_like(reward)),
             done=do & terminated)
     if autoreset:
-        new = select_state(terminated, opening(n, mine.device), new)
+        new = select_games(terminated, opening(n, mine.device), new)
     return BitStepResult(state=new, reward=reward, done=terminated)
 
 
 def reset_where_plain(state: BitState, done: torch.Tensor) -> BitState:
     """Games where ``done`` at the opening, the rest unchanged: the plain
     version of the ply kernel's ``reset_where``."""
-    return select_state(done, opening(done.shape[0], done.device), state)
-
-
-def bit_step(state: BitState, action: torch.Tensor,
-             sudden_death_on_invalid_move: bool = True,
-             num_disk_as_reward: bool = False) -> BitStepResult:
-    """One ply for every game (``bit_step_plain``'s semantics) through the
-    ply kernel's wrapper: one launch on a CUDA tensor, the plain version
-    on a CPU tensor.  ``action``: any integer type."""
-    # Imported here: ops/step builds on this module.
-    from gymothelloenv_tpu_torch.ops import step
-
-    return step.bit_step(
-        state, action.to(torch.int64),
-        sudden_death_on_invalid_move=sudden_death_on_invalid_move,
-        num_disk_as_reward=num_disk_as_reward)
-
-
-def step_cfg(state: BitState, action: torch.Tensor,
-             cfg: EnvConfig) -> BitStepResult:
-    """``bit_step`` with the flags of ``cfg``."""
-    return bit_step(
-        state, action,
-        sudden_death_on_invalid_move=cfg.sudden_death_on_invalid_move,
-        num_disk_as_reward=cfg.num_disk_as_reward)
+    return select_games(done, opening(done.shape[0], done.device), state)
 
 
 def uniform_index(count: torch.Tensor,

@@ -12,6 +12,8 @@ mapping carries any per-parameter tensor, such as Adam's moments
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -123,14 +125,17 @@ def load_flax_params(net: PolicyNet, params) -> PolicyNet:
 def architecture(params) -> dict:
     """``PolicyNet``'s capacity from a flax tree's stored shapes, as JAX's
     ``load_eval_policy`` infers it (ppo_trainer.py:352-358):
-    ``width_mult``, ``hidden_size``, ``recurrent`` (a ``GRUCore_0``) and
-    ``frame_stack`` (``Conv_0``'s input channels over 4)."""
+    ``width_mult``, ``hidden_size``, ``recurrent`` (a ``GRUCore_0``),
+    ``frame_stack`` (``Conv_0``'s input channels over 4) and
+    ``board_size`` (the square root of the logits' width)."""
     p = params.get("params", params)
     conv0 = np.shape(p["ConvTrunk_0"]["Conv_0"]["kernel"])
+    actions = int(np.shape(p["Dense_2"]["kernel"])[-1])
     return dict(width_mult=int(conv0[-1]) // 32,
                 hidden_size=int(np.shape(p["Dense_0"]["kernel"])[-1]),
                 recurrent="GRUCore_0" in p,
-                frame_stack=int(conv0[-2]) // 4)
+                frame_stack=int(conv0[-2]) // 4,
+                board_size=math.isqrt(actions))
 
 
 def policy_net_from_flax(params, width_mult: int | None = None,
@@ -138,12 +143,15 @@ def policy_net_from_flax(params, width_mult: int | None = None,
                          dtype: torch.dtype = torch.float32) -> PolicyNet:
     """Build the port's ``PolicyNet`` from a flax ``PolicyNet`` param tree
     (``conv`` trunk): recurrent where the tree has a ``GRUCore_0``, with
-    ``4 x frame_stack`` input channels as ``Conv_0`` stores them.
+    ``4 x frame_stack`` input channels as ``Conv_0`` stores them, for the
+    board its logits' width gives.
     ``width_mult`` and ``hidden_size`` default to the stored ones; given,
     a tree of another capacity raises ``ValueError``."""
     device = resolve_device(device)
     arch = architecture(params)
-    net = PolicyNet(hidden_size=hidden_size or arch["hidden_size"],
+    b = arch["board_size"]
+    net = PolicyNet(num_actions=b * b, board_size=b,
+                    hidden_size=hidden_size or arch["hidden_size"],
                     width_mult=width_mult or arch["width_mult"],
                     recurrent=arch["recurrent"],
                     in_channels=4 * arch["frame_stack"], dtype=dtype)

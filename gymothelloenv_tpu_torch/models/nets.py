@@ -4,11 +4,15 @@ impl="conv", ``GRUCore``, ``PolicyNet``; the vendored masked ``Policy`` +
 ``CNNBase``, model.py:19-98, :201-314) and of ``train/ppo_trainer.py::
 make_apply_fn_framestack``.
 
-Input is NCHW ``(N, 4K, 8, 8)`` float32 as in JAX (K > 1 with frame
-stacking).  The JAX trunk runs in NHWC and flattens its ``(2, 2, C)``
-output as ``(h, w, c)``; this trunk runs in NCHW, so it permutes to NHWC
-before the flatten and the fc weights carry over unchanged
-(``models/convert.py``).
+Input is NCHW ``(N, 4K, B, B)`` float32 as in JAX (K > 1 with frame
+stacking).  The JAX trunk runs in NHWC and flattens its ``(s, s, C)``
+output (``s = ceil(B / 2) - 2``: 2 on 8x8) as ``(h, w, c)``; this trunk
+runs in NCHW, so it permutes to NHWC before the flatten and the fc
+weights carry over unchanged (``models/convert.py``).  Where a valid
+convolution's kernel is larger than its input (B = 4 ends at 0 x 0), flax
+gives an empty output and the fc sees 0 features, so its output is its
+bias; ``torch.nn.Conv2d`` would raise, so the trunk returns the empty
+output itself.
 
 ``dtype=torch.bfloat16`` computes as flax's ``PolicyNet(dtype=bfloat16)``
 does, with explicit casts: the parameters stay float32; the trunk and the
@@ -59,8 +63,21 @@ class ConvTrunk(nn.Module):
     def forward(self, x: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
         for conv in (self.conv0, self.conv1, self.conv2):
+            side = x.shape[-1] + 2 * conv.padding[0] - conv.kernel_size[0]
+            if side < 0:
+                # flax: a valid convolution of a smaller input is empty.
+                x = x.new_zeros(x.shape[0], conv.out_channels, 0, 0,
+                                dtype=dtype)
+                continue
             x = torch.relu(_apply(conv, x, dtype))
         return x.permute(0, 2, 3, 1).flatten(1)
+
+
+def trunk_side(board_size: int) -> int:
+    """The trunk's output side for a ``board_size`` board: ``ceil(B / 2)
+    - 2`` (conv0 halves with padding, each 2x2 valid conv takes one off),
+    0 where it would be empty."""
+    return max((board_size + 1) // 2 - 2, 0)
 
 
 class GRUCell(nn.Module):
@@ -91,10 +108,10 @@ class GRUCell(nn.Module):
 
 class PolicyNet(nn.Module):
     """Masked actor-critic: trunk -> fc(hidden) + ReLU [-> GRU(hidden)]
-    -> value (1) and logits (64).  Orthogonal init: relu gain for trunk
-    and fc, 0.01 for the logits, 1.0 for the value and the GRU's kernels,
-    zero biases (model.py:291-304, flax ``GRUCell``'s orthogonal
-    kernels).
+    -> value (1) and logits (``num_actions``, ``B * B``).  Orthogonal
+    init: relu gain for trunk and fc, 0.01 for the logits, 1.0 for the
+    value and the GRU's kernels, zero biases (model.py:291-304, flax
+    ``GRUCell``'s orthogonal kernels).
 
     ``forward(x)`` gives ``(logits, value)``; a recurrent net's
     ``forward(x, h, mask)`` gives ``(logits, value, h')`` with ``h``
@@ -109,9 +126,10 @@ class PolicyNet(nn.Module):
         super().__init__()
         self.recurrent = recurrent
         self.hidden_size = hidden_size
+        self.board_size = board_size
         self.dtype = dtype
         self.trunk = ConvTrunk(in_channels, width_mult)
-        side = board_size // 2 - 2          # 8 -> 4 -> 3 -> 2
+        side = trunk_side(board_size)       # 8 -> 4 -> 3 -> 2
         self.fc = nn.Linear(64 * width_mult * side * side, hidden_size)
         if recurrent:
             self.gru = GRUCell(hidden_size, hidden_size)
@@ -148,7 +166,7 @@ class PolicyNet(nn.Module):
 
     def forward(self, x: torch.Tensor, h: torch.Tensor | None = None,
                 mask: torch.Tensor | None = None):
-        """``x`` float32 (N, C, 8, 8) -> ``(logits (N, A), value (N,))``,
+        """``x`` float32 (N, C, B, B) -> ``(logits (N, A), value (N,))``,
         and the new hidden state (N, hidden) for a recurrent net."""
         y = self.features(x)
         if not self.recurrent:
@@ -161,8 +179,9 @@ class PolicyNet(nn.Module):
 
 class FrameStackCell(nn.Module):
     """Frame stacking as a recurrent cell (JAX ``make_apply_fn_framestack``;
-    VecPyTorchFrameStack, envs.py:210-250): ``h`` packs the previous
-    ``nstack - 1`` observations flat; ``forward(obs, h, mask)`` feeds
+    VecPyTorchFrameStack, envs.py:210-250) on a ``board_size`` board:
+    ``h`` packs the previous ``nstack - 1`` observations flat;
+    ``forward(obs, h, mask)`` feeds
     ``[h * mask frames, obs]`` (newest in the last 4 channels) to the
     feed-forward ``net`` and returns ``(logits, value, window[4:])``, the
     window shifted by one frame.  So the recurrent collector, update and
@@ -170,16 +189,17 @@ class FrameStackCell(nn.Module):
 
     recurrent = True
 
-    def __init__(self, net: PolicyNet, nstack: int):
+    def __init__(self, net: PolicyNet, nstack: int, board_size: int = 8):
         super().__init__()
         self.net = net
         self.nstack = nstack
-        self.hidden_size = (nstack - 1) * 4 * 64
+        self.board_size = board_size
+        self.hidden_size = (nstack - 1) * 4 * board_size * board_size
 
     def forward(self, obs: torch.Tensor, h: torch.Tensor,
                 mask: torch.Tensor):
-        n = obs.shape[0]
-        prev = (h * mask[:, None]).reshape(n, (self.nstack - 1) * 4, 8, 8)
+        n, b = obs.shape[0], self.board_size
+        prev = (h * mask[:, None]).reshape(n, (self.nstack - 1) * 4, b, b)
         x = torch.cat([prev, obs.to(prev.dtype)], dim=1)
         logits, value = self.net(x)
         return logits, value, x[:, 4:].reshape(n, self.hidden_size)
@@ -194,11 +214,14 @@ def params_net(policy: nn.Module) -> PolicyNet:
 def make_policy_net(width_mult: int = 1, hidden_size: int = 512,
                     seed: int = 0, device=None, recurrent: bool = False,
                     in_channels: int = 4,
-                    dtype: torch.dtype = torch.float32) -> PolicyNet:
-    """A seeded orthogonal init of ``PolicyNet`` on ``device``."""
+                    dtype: torch.dtype = torch.float32,
+                    board_size: int = 8) -> PolicyNet:
+    """A seeded orthogonal init of ``PolicyNet`` on ``device`` for a
+    ``board_size`` board."""
     device = resolve_device(device)
-    net = PolicyNet(hidden_size=hidden_size, width_mult=width_mult,
-                    recurrent=recurrent, in_channels=in_channels,
-                    dtype=dtype)
+    net = PolicyNet(num_actions=board_size * board_size,
+                    hidden_size=hidden_size, width_mult=width_mult,
+                    board_size=board_size, recurrent=recurrent,
+                    in_channels=in_channels, dtype=dtype)
     net.reset_parameters(torch.Generator().manual_seed(seed))
     return net.to(device).eval()

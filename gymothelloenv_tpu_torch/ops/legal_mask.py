@@ -4,9 +4,10 @@ Replaces ``gymothelloenv_tpu/ops/pallas_bitboard.py::legal_mask_pallas``
 (kernel ``_legal_kernel``).  The CUDA kernel is ``csrc/legal_mask.cu``; its
 plain PyTorch version is ``core.bitboard.legal_mask``, used for CPU
 tensors only.  A CUDA tensor always goes to the kernel, or the wrapper
-raises.  On the port's main path it runs once per ``bit_reset``: every
-ply's legal floods run inside the ply kernel (``ops/step.py``).  Its own
-benchmark is ``scripts/bench_legal_mask.py``.
+raises.  It runs on perft's levels (``core/perft.py``: both sides' masks
+of a frontier in one launch) and on its own benchmark,
+``scripts/bench_legal_mask.py``; every ply's legal floods run inside the
+ply kernel (``ops/step.py``).
 """
 
 from __future__ import annotations

@@ -3,11 +3,12 @@
 There is no Pallas kernel to replace: JAX's
 ``gymothelloenv_tpu/core/bitboard.py::bit_step`` is fused by XLA.  The
 kernel (``csrc/step.cu``) carries K2's legal floods on the port's main
-path, along with the flips, the terminal rules, ``step_where``'s select,
-the env's auto-reset and ``reset_where``.  Its plain versions are
-``core.bitboard.bit_step_plain`` and ``reset_where_plain``, used for CPU
-tensors only; a CUDA tensor always goes to the kernel, or the wrapper
-raises.
+path, along with the flips, the terminal rules, the select of
+``BitEngine.step_where`` (``do``), the env's auto-reset and
+``reset_where``.  ``bit_step`` is the one entry point of a ply.  Its
+plain versions are ``core.bitboard.bit_step_plain`` and
+``reset_where_plain``, used for CPU tensors only; a CUDA tensor always
+goes to the kernel, or the wrapper raises.
 
 A wrapper call allocates the words as one ``(3, N)`` int64 tensor, the
 small fields as one int8 tensor and (``bit_step``) the reward, and returns
@@ -21,7 +22,6 @@ import torch
 
 from gymothelloenv_tpu_torch.core import bitboard
 from gymothelloenv_tpu_torch.core.bitboard import BitState, BitStepResult
-from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.ops import _build
 
 # otb_bit_step's mode argument (csrc/step.cu kPlain, kWhere, kAutoreset).
@@ -118,14 +118,6 @@ def bit_step(state: BitState, action: torch.Tensor,
 
 
 bit_step.launches = 0
-
-
-def step_where(state: BitState, action: torch.Tensor, do: torch.Tensor,
-               cfg: EnvConfig) -> BitState:
-    """Step the games where ``do`` with the flags of ``cfg``; the rest keep
-    their state (``BitEngine.step_where``).  One ``bit_step`` launch."""
-    return bit_step(state, action, cfg.sudden_death_on_invalid_move,
-                    cfg.num_disk_as_reward, do=do).state
 
 
 def reset_where(state: BitState, done: torch.Tensor) -> BitState:

@@ -2,17 +2,29 @@
 random, greedy and depth-k maximin, and the ``make_policy`` factory.
 
 Protocol: ``act(state, generator) -> int64 actions (N,)`` on a batched
-``BitState``; policies that need no randomness ignore ``generator``.
+state of either layout, a ``BitState`` (8x8 words) or a plane
+``OthelloState`` (any board size); each policy dispatches on the state's
+type (``core.engine.engine_of``), so the 8x8 bitboard policies run as
+before.  Policies that need no randomness ignore ``generator``.
 
-Maximin expands its tree a level at a time through ``expand_legal`` (the
-ply kernel, ``ops.step.bit_step`` in plain mode: one launch a level on the
-card, the plain ply on the CPU), stepping only the legal ``(node,
-action)`` pairs, and reduces back with max/min as JAX's
-``jnp.where(legal, vals, -+BIG)`` does (scripted.py:83-157).  A child's moves for its side to move (the
-opponent of its parent's mover) are the child's ``legal`` where its
-``turn`` is that side, else none: the ply kernel bounces the turn back
-when that side cannot move, and zeroes ``legal`` when the game ends.  A
-node without moves is scored at once, the reference's pass quirk.
+On planes, maximin keeps the reference's own search (JAX
+scripted.py:66-145): a child's side to move is always the opponent of its
+parent's (``_board_after`` flips the perspective with no bounce), and a
+node whose side to move has no legal move is scored at once.  JAX expands
+all ``B*B`` actions and masks the illegal ones; here only the legal
+``(node, action)`` pairs are expanded, a level at a time (one host read a
+level), which gives the same values and decisions.
+
+On words, maximin expands its tree a level at a time through
+``expand_legal`` (the ply kernel, ``ops.step.bit_step`` in plain mode: one
+launch a level on the card, the plain ply on the CPU), stepping only the
+legal ``(node, action)`` pairs, and reduces back with max/min as JAX's
+``jnp.where(legal, vals, -+BIG)`` does (scripted.py:83-157).  A child's
+moves for its side to move (the opponent of its parent's mover) are the
+child's ``legal`` where its ``turn`` is that side, else none: the ply
+kernel bounces the turn back when that side cannot move, and zeroes
+``legal`` when the game ends.  A node without moves is scored at once,
+the reference's pass quirk.
 ``expand_legal`` and the memory-bounded chunking (``chunked``) also carry
 the value-lookahead search (``train/ppo_trainer.lookahead_search``).
 """
@@ -24,11 +36,12 @@ import functools
 import torch
 
 from gymothelloenv_tpu_torch.core import bitboard as bb
-from gymothelloenv_tpu_torch.core.engine import BitEngine
-from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.core import bitops
+from gymothelloenv_tpu_torch.core.engine import engine_of
+from gymothelloenv_tpu_torch.core.state import (EnvConfig, OthelloState,
+                                                disk_planes, index_games)
 from gymothelloenv_tpu_torch.ops import step
 
-_ENGINE = BitEngine()
 _BIG = 1 << 20
 # Device bytes a frontier node can hold while a level is expanded: the
 # gathered parent state, the stepped child (words, small fields, reward),
@@ -36,25 +49,28 @@ _BIG = 1 << 20
 # room to spare.  A kept node (parent index and leaf value) costs 16.
 NODE_BYTES = 512
 _KEPT_BYTES = 16
+# On planes a pair holds its child board and the flood's boolean planes
+# while its level expands: bytes a cell of the board.
+PLANE_NODE_BYTES_PER_CELL = 48
 # The share of the card's free memory one expansion may take.
 _FREE_SHARE = 0.5
 # The budget on the CPU, where no free-memory reading is taken.
 _CPU_BUDGET = 1 << 30
 
 
-def random_policy(state: bb.BitState,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+def random_policy(state, generator: torch.Generator | None = None
+                  ) -> torch.Tensor:
     """Uniform sample over legal actions (RandomPolicy,
     simple_policies.py:21-44)."""
-    return bb.random_legal_bit(state.legal, generator=generator)
+    return engine_of(state).random_legal(state, generator=generator)
 
 
-def greedy_policy(state: bb.BitState,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
+def greedy_policy(state, generator: torch.Generator | None = None
+                  ) -> torch.Tensor:
     """1-ply disk-count maximizer, ties to the lowest action index
     (GreedyPolicy, simple_policies.py:57-92)."""
     del generator
-    return _ENGINE.greedy(state)
+    return engine_of(state).greedy(state)
 
 
 def memory_budget(device: torch.device) -> int:
@@ -84,7 +100,7 @@ def expand_legal(nodes: bb.BitState, legal: torch.Tensor,
     parent = torch.searchsorted(ends, k, right=True)
     action = bb.random_legal_bit(legal[parent], k - (ends - counts)[parent])
     res = step.bit_step(
-        bb.index_state(nodes, parent), action,
+        index_games(nodes, parent), action,
         sudden_death_on_invalid_move=cfg.sudden_death_on_invalid_move,
         num_disk_as_reward=cfg.num_disk_as_reward)
     return parent, action, res.state, res.reward
@@ -131,9 +147,57 @@ def _search(depth: int, state: bb.BitState, budget: int | None):
     return torch.argmax(scores, dim=1)
 
 
-def chunked(search, state: bb.BitState, expand_chunk: int = 0):
+def _plane_search(depth: int, state: OthelloState, budget: int | None):
+    """``_search`` on plane games (JAX ``maximin_action``'s recursion,
+    batched over the legal pairs of a level): decisions for every game,
+    or ``None`` when a level's frontier would not fit ``budget`` bytes.
+    One host read a level: the number of pairs."""
+    n, b = state.turn.shape[0], state.board.shape[-1]
+    cells = b * b
+    per_pair = _KEPT_BYTES + PLANE_NODE_BYTES_PER_CELL * cells
+    me = state.turn
+    game = torch.arange(n, device=me.device)
+    board, persp, legal = state.board, state.turn, state.legal
+    kept = 0
+    levels = []                                 # (parent, action, leaf)
+    index = torch.arange(cells, device=me.device)
+    for level in range(1, depth + 1):
+        total = int(legal.sum())
+        if budget is not None and total > (budget - kept) // per_pair:
+            return None
+        parent, action = legal.nonzero(as_tuple=True)
+        kept += _KEPT_BYTES * total
+        onehot = (index == action[:, None]).reshape(total, b, b)
+        p = persp[parent]
+        mine, opp = bitops.apply_move(onehot,
+                                      *disk_planes(board[parent], p))
+        p = p[:, None, None]
+        board = torch.where(mine, p, torch.where(opp, -p,
+                                                 torch.zeros_like(p)))
+        persp = -persp[parent]
+        game = game[parent]
+        leaf = (board == me[game][:, None, None]).flatten(1).sum(1)
+        levels.append((parent, action, leaf))
+        if level < depth:
+            legal = bitops.legal_mask(*disk_planes(board, persp)).flatten(1)
+    value = levels[-1][2]
+    for level in range(depth - 1, 0, -1):
+        _, _, leaf = levels[level - 1]
+        # A node at an odd level is the opponent's (min); a node without
+        # children keeps its leaf value.
+        value = leaf.scatter_reduce(0, levels[level][0], value,
+                                    "amin" if level % 2 else "amax",
+                                    include_self=False)
+    parent, action, _ = levels[0]
+    scores = torch.full((n, cells), -_BIG, dtype=value.dtype,
+                        device=me.device)
+    scores[parent, action] = value
+    return torch.argmax(scores, dim=1)
+
+
+def chunked(search, state, expand_chunk: int = 0):
     """Run ``search(games, budget)`` (its result for the games of a
-    ``BitState``, a tensor or a tuple of tensors with a leading games
+    batched state, a tensor or a tuple of tensors with a leading games
     axis, or ``None`` when ``budget`` bytes are too few) over the games of
     ``state`` in chunks, and concatenate.  ``expand_chunk``: 0 fits half
     the card's free memory (``torch.cuda.mem_get_info``; 1 GiB on the
@@ -144,14 +208,14 @@ def chunked(search, state: bb.BitState, expand_chunk: int = 0):
     if n == 0 or expand_chunk < 0:
         return search(state, None)
     if expand_chunk > 0:
-        parts = [search(bb.index_state(state, slice(i, i + expand_chunk)),
+        parts = [search(index_games(state, slice(i, i + expand_chunk)),
                         None) for i in range(0, n, expand_chunk)]
     else:
         budget = memory_budget(state.turn.device)
         done, todo = [], [(0, n)]
         while todo:
             lo, hi = todo.pop()
-            got = search(bb.index_state(state, slice(lo, hi)),
+            got = search(index_games(state, slice(lo, hi)),
                          budget if hi - lo > 1 else None)
             if got is None:
                 mid = (lo + hi) // 2
@@ -164,7 +228,7 @@ def chunked(search, state: bb.BitState, expand_chunk: int = 0):
     return torch.cat(parts)
 
 
-def maximin_action(state: bb.BitState, depth: int,
+def maximin_action(state, depth: int,
                    expand_chunk: int = 0) -> torch.Tensor:
     """Depth-``depth`` maximin on disk count, no alpha-beta (MaxiMinPolicy,
     simple_policies.py:98-163; JAX ``maximin_action``): the root is a max
@@ -179,15 +243,16 @@ def maximin_action(state: bb.BitState, depth: int,
     change a decision."""
     if depth < 1:
         raise ValueError(f"maximin depth must be >= 1, got {depth}")
-    return chunked(functools.partial(_search, depth), state,
-                   expand_chunk)
+    search = (_plane_search if isinstance(state, OthelloState)
+              else _search)
+    return chunked(functools.partial(search, depth), state, expand_chunk)
 
 
 def maximin_policy(depth: int, expand_chunk: int = 0):
     """``maximin_action`` as a tournament policy."""
     @functools.wraps(maximin_action)
-    def act(state: bb.BitState,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+    def act(state, generator: torch.Generator | None = None
+            ) -> torch.Tensor:
         del generator
         return maximin_action(state, depth, expand_chunk)
     return act

@@ -41,9 +41,9 @@ import torch
 from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, make_optimizer,
                                                 ppo_update,
                                                 ppo_update_recurrent)
-from gymothelloenv_tpu_torch.core.engine import BitEngine
+from gymothelloenv_tpu_torch.core.engine import engine_of, get_engine
 from gymothelloenv_tpu_torch.core.featurize import make_state
-from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.core.state import EnvConfig, index_games
 from gymothelloenv_tpu_torch.models.convert import (architecture,
                                                     flax_leaves, flax_tree,
                                                     load_flax_params,
@@ -60,9 +60,10 @@ from gymothelloenv_tpu_torch.policies.scripted import (expand_legal,
                                                        random_policy)
 from gymothelloenv_tpu_torch.train import tournament
 from gymothelloenv_tpu_torch.train.self_play import (
-    LEAF_SLICE, NEG, Draws, collect_rollout, collect_rollout_recurrent,
-    collect_rollout_time_limited, make_lookahead_override, node_values,
-    selfplay_init, selfplay_init_recurrent)
+    LEAF_SLICE, NEG, Draws, check_lookahead_board, collect_rollout,
+    collect_rollout_recurrent, collect_rollout_time_limited,
+    make_lookahead_override, node_values, selfplay_init,
+    selfplay_init_recurrent)
 from gymothelloenv_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
 from gymothelloenv_tpu_torch.utils.device import (resolve_device,
@@ -160,17 +161,23 @@ def load_eval_policy(path: str, cfg: EnvConfig = EnvConfig(), device=None):
     one takes ``(obs, h, mask)``), or for a frame-stacked net its
     ``FrameStackCell``.  A policy that threads state has ``recurrent``
     True and its state width in ``hidden_size``.  ``cfg``: the board the
-    net plays (8x8 in the port)."""
+    net plays; a checkpoint whose logits are for another board raises
+    ``ValueError``.  Sets float32 numerics (``use_float32``: TF32 off), so
+    every evaluation path, the stateful one too, convolves in float32."""
     if path.endswith((".pth", ".pt")):
         raise NotImplementedError(
             "reference torch checkpoints (.pth/.pt) are not ported yet "
             "(ROADMAP.md queue 1 item 12, the compat layer)")
-    del cfg     # 8x8 only; the stored shapes fix the 64 actions
+    use_float32()
     step, raw, _, _ = load_checkpoint(path)
     arch = architecture(raw)
+    if arch["board_size"] != cfg.board_size:
+        raise ValueError(
+            f"{path}: the net plays a {arch['board_size']}x"
+            f"{arch['board_size']} board, not board_size={cfg.board_size}")
     net = policy_net_from_flax(raw, device=device)
     stack = arch["frame_stack"]
-    policy = (FrameStackCell(net, stack)
+    policy = (FrameStackCell(net, stack, cfg.board_size)
               if stack > 1 and not arch["recurrent"] else net)
     extra = ("" if arch["width_mult"] == 1 and arch["hidden_size"] == 512
              else f", width_mult={arch['width_mult']}, "
@@ -185,12 +192,12 @@ def net_sampling_cell(net: torch.nn.Module):
     draws) -> (actions, h')`` (JAX ``net_sampling_cell``): the state
     advances on the observations, and each game samples its masked
     logits with one uniform from ``draws``."""
-    def cell(states: bb.BitState, h: torch.Tensor, draws):
+    def cell(states, h: torch.Tensor, draws):
         with torch.inference_mode():
             logits, _, h_new = net(make_state(states), h,
                                    torch.ones(h.shape[0], device=h.device))
-            dist = MaskedCategorical(logits=logits,
-                                     mask=bb.unpack_flat(states.legal))
+            dist = MaskedCategorical(
+                logits=logits, mask=engine_of(states).legal_flat(states))
             u = draws.uniforms(h.shape[0], h.device)
             return dist.sample(u=u), h_new
     return cell
@@ -208,7 +215,8 @@ def lookahead_recurrent(net: torch.nn.Module, states: bb.BitState,
     ``(action, scores, margin, h_cur)``: the argmax of the legal values
     (the first maximum; action 0 without a legal move), the (N, 64)
     values (``NEG`` where illegal), the best value over the second
-    (``inf`` without a second) and the state to carry."""
+    (``inf`` without a second) and the state to carry.  8x8 only."""
+    check_lookahead_board(cfg)
     n = h.shape[0]
     ones = torch.ones(n, device=h.device)
     _, _, h_cur = net(make_state(states), h, ones)
@@ -229,7 +237,8 @@ def net_lookahead_cell_recurrent(net: torch.nn.Module, cfg: EnvConfig,
     """``lookahead_recurrent`` as a stateful actor ``cell(states, h,
     draws) -> (actions, h_cur)``: the carried state advances to
     ``h_cur``, never to a child's.  ``cfg`` carries the training reward
-    scale.  Depth 1 only, as in JAX."""
+    scale.  Depth 1 only, as in JAX; 8x8 only."""
+    check_lookahead_board(cfg)
     if depth != 1:
         raise NotImplementedError(
             "recurrent lookahead supports depth 1 only (depth-2 would "
@@ -251,9 +260,6 @@ def rec_lookahead_game_bytes(net: torch.nn.Module) -> int:
     return 34 * (scripted.NODE_BYTES + _board_bytes(params_net(net)) + state)
 
 
-_ENGINE = BitEngine()
-
-
 def play_games_recurrent(cfg: EnvConfig, net: torch.nn.Module, opp_policy,
                          num_games: int, net_color: int,
                          init_rand_steps: int = 0, hidden_size: int = 512,
@@ -267,11 +273,12 @@ def play_games_recurrent(cfg: EnvConfig, net: torch.nn.Module, opp_policy,
     ``opp_cell`` a second stateful actor with its own ``opp_hidden_size``
     state.  Returns winners int8 (N,).
 
-    The games step in lockstep, one ``BitEngine.step_where`` (one
-    ply-kernel launch) a ply, for at most 64 plies.  The net's state
-    advances on every live ply where it is the net's turn, random-opening
-    plies included (the collector advances ``h_prot`` on every
-    protagonist decision); the opponent's on its own live turns.
+    The games step in lockstep on ``get_engine(cfg)``, one ``step_where``
+    a ply (on 8x8 one ply-kernel launch), for at most ``B * B`` plies.
+    The net's state advances on every live ply where it is the net's
+    turn, random-opening plies included (the collector advances
+    ``h_prot`` on every protagonist decision); the opponent's on its own
+    live turns.
     ``act_cell``: a stateful actor ``(states, h, draws) -> (actions, h')``
     in place of the sampling cell (the recurrent lookahead).  ``draws``
     (``train.self_play.Draws`` over ``generator`` by default) gives the
@@ -280,7 +287,8 @@ def play_games_recurrent(cfg: EnvConfig, net: torch.nn.Module, opp_policy,
     device = resolve_device(device)
     if draws is None:
         draws = Draws(generator)
-    states = bb.bit_reset(num_games, device)
+    eng = get_engine(cfg)
+    states = eng.reset_batch(num_games, cfg, device)
     rand_left = draws.rand_left(num_games, init_rand_steps, device)
     h = torch.zeros(num_games, hidden_size, device=device)
     h_opp = torch.zeros(num_games, opp_hidden_size, device=device)
@@ -292,15 +300,15 @@ def play_games_recurrent(cfg: EnvConfig, net: torch.nn.Module, opp_policy,
             a_opp, h_opp_new = opp_policy(states, generator), h_opp
         else:
             a_opp, h_opp_new = opp_cell(states, h_opp, draws)
-        a_rand = bb.random_legal_bit(
-            states.legal, draws.legal_index(bb.popcount(states.legal)))
+        a_rand = eng.random_legal(
+            states, draws.legal_index(eng.legal_count(states)))
         net_turn = states.turn == net_color
         action = torch.where(rand_left > 0, a_rand,
                              torch.where(net_turn, a_net, a_opp))
         live = ~states.terminated
         h = torch.where((net_turn & live)[:, None], h_new, h)
         h_opp = torch.where((~net_turn & live)[:, None], h_opp_new, h_opp)
-        states = _ENGINE.step_where(states, action, live, cfg)
+        states = eng.step_where(states, action, live, cfg)
         rand_left = torch.where(live, (rand_left - 1).clamp(min=0),
                                 rand_left)
         ply += 1
@@ -415,7 +423,7 @@ def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(p1.shape[0], device=dev) - starts[p1[order]]
     sel, sel_rank = order[rank < beam_k], rank[rank < beam_k]
-    cb, tb_ = bb.index_state(c1, sel), t1[sel]
+    cb, tb_ = index_games(c1, sel), t1[sel]
     got = _replies(cb, tb_, cfg, _room(budget, kept, board))
     if got is None:
         return None
@@ -454,6 +462,7 @@ def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
 
 
 def _check_search(depth: int, beam_k: int, cfg: EnvConfig) -> None:
+    check_lookahead_board(cfg)
     if depth not in (1, 2, 3):
         raise ValueError(f"lookahead depth must be 1, 2 or 3, got {depth}")
     if depth == 3 and not 1 <= beam_k <= cfg.num_actions:
@@ -577,7 +586,8 @@ class PPOSelfPlayTrainer:
         # What the collector and the update call: the net, or the
         # frame-stack cell over it; and the width of its state (0 for a
         # feed-forward net).
-        self.policy = (FrameStackCell(self.net, run.frame_stack)
+        self.policy = (FrameStackCell(self.net, run.frame_stack,
+                                      self.env_cfg.board_size)
                        if stacked else self.net)
         self._state_size = (self.policy.hidden_size if self._rec_like
                             else 0)

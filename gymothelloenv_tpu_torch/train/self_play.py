@@ -24,11 +24,16 @@ override's) even when the executed ply was the random one.
 
 JAX's ``lax.while_loop`` in ``advance_opponent`` is a host loop here with
 one ``.any()`` read per iteration, bounded by ``MAX_ADVANCE_ITERS``.  The
-game batch stays in bitboard words (``core.bitboard.BitState``); on the
-card every ply (``BitEngine.step_where``), the reset of finished games
+collectors read their engine from ``core.engine.get_engine(cfg,
+force_plane)`` as JAX's do, and the phase helpers take it from the
+state's layout (``engine_of``).  On 8x8 the game batch stays in bitboard
+words (``core.bitboard.BitState``): on the card every ply
+(``BitEngine.step_where``), the reset of finished games
 (``BitEngine.reset_where``) and each lookahead expansion
 (``policies.scripted.expand_legal``) are one launch each of the ply kernel
-(``ops/step.py``).
+(``ops/step.py``).  Other board sizes, and 8x8 with ``force_plane``, keep
+plane games (``core.state.OthelloState``) and step them with the plane
+rules; the lookahead override is 8x8 only.
 
 Also ported: the time-limited collector (``collect_rollout_time_limited``,
 gym's TimeLimit with the fork's TimeLimitMask) and the recurrent one
@@ -52,9 +57,9 @@ import torch
 
 from gymothelloenv_tpu_torch.agents.ppo import Transition
 from gymothelloenv_tpu_torch.core import bitboard as bb
-from gymothelloenv_tpu_torch.core.engine import BitEngine
+from gymothelloenv_tpu_torch.core.engine import engine_of, get_engine
 from gymothelloenv_tpu_torch.core.featurize import make_state
-from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.core.state import EnvConfig, index_games
 from gymothelloenv_tpu_torch.envs.bit_vector_env import draw_rand_left
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
 from gymothelloenv_tpu_torch.policies.scripted import expand_legal
@@ -69,21 +74,30 @@ NEG = -1e9
 # states, are a deep search's memory.
 LEAF_SLICE = 65536
 
-_ENGINE = BitEngine()
+
+def check_lookahead_board(cfg: EnvConfig) -> None:
+    """Raise ``NotImplementedError`` for a value-lookahead search (built
+    on the bitboard ``expand_legal``) on a board other than 8x8."""
+    if cfg.board_size != 8:
+        raise NotImplementedError(
+            "the value-lookahead search runs on the 8x8 bitboard only; "
+            "other board sizes are ROADMAP.md queue 1 item 8b "
+            f"(board_size={cfg.board_size})")
 
 
 @dataclasses.dataclass
 class Pending:
-    obs: torch.Tensor     # int8 (N, 4, 8, 8) {0,1} planes
+    obs: torch.Tensor     # int8 (N, 4, B, B) {0,1} planes
     action: torch.Tensor  # int64 (N,)
     logp: torch.Tensor    # float32 (N,)
     value: torch.Tensor   # float32 (N,)
-    legal: torch.Tensor   # bool (N, 64)
+    legal: torch.Tensor   # bool (N, B*B)
 
 
 @dataclasses.dataclass
 class SelfPlayState:
-    env: bb.BitState      # (N,) games, NOT auto-reset
+    env: object           # (N,) games, NOT auto-reset: a BitState on the
+    #                       bit engine, an OthelloState on planes
     rand_left: torch.Tensor  # int64 (N,) random-opening plies left
     pcolor: torch.Tensor  # int8 (N,) protagonist colour per game
     pending: Pending
@@ -161,7 +175,7 @@ def node_values(net: torch.nn.Module, nodes: bb.BitState,
     is not the root's.  The net runs over ``LEAF_SLICE`` boards at a
     time."""
     m = nodes.turn.shape[0]
-    values = [net(make_state(bb.index_state(nodes, slice(i, i + LEAF_SLICE)))
+    values = [net(make_state(index_games(nodes, slice(i, i + LEAF_SLICE)))
                   )[1] for i in range(0, m, LEAF_SLICE)]
     v = torch.cat(values) if values else reward.new_zeros(0)
     mover_v = torch.where(nodes.turn == root_turn, v, -v)
@@ -195,8 +209,11 @@ def make_lookahead_override(cfg: EnvConfig, tau: float = 0.0) -> Override:
     ``softmax(values / tau)`` over the legal actions (one inverse-CDF
     uniform a row from ``draws``; values on the training disk-difference
     scale, +-64); ``tau`` = 0 plays the argmax, ties to the lowest index.
+    8x8 only: other boards raise ``NotImplementedError``.
 
     Returns ``override(net, env, legal, draws) -> int64 actions``."""
+    check_lookahead_board(cfg)
+
     def override(net, env, legal, draws):
         vals = lookahead_action_values(net, env, cfg)
         masked = torch.where(legal, vals, torch.full_like(vals, NEG))
@@ -208,7 +225,7 @@ def make_lookahead_override(cfg: EnvConfig, tau: float = 0.0) -> Override:
     return override
 
 
-def policy_sample(net: torch.nn.Module, env: bb.BitState, draws,
+def policy_sample(net: torch.nn.Module, env, draws,
                   logp_mode: str = "masked",
                   act_override: Override | None = None):
     """Sample masked actions for every game; returns ``(obs, legal,
@@ -221,8 +238,9 @@ def policy_sample(net: torch.nn.Module, env: bb.BitState, draws,
     if logp_mode not in ("masked", "full"):
         raise ValueError(f"logp_mode must be 'masked' or 'full', got "
                          f"{logp_mode!r}")
-    obs = _ENGINE.featurize(env)
-    legal = _ENGINE.legal_flat(env)
+    eng = engine_of(env)
+    obs = eng.featurize(env)
+    legal = eng.legal_flat(env)
     logits, value = net(obs)
     dist = MaskedCategorical(logits=logits, mask=legal)
     if act_override is not None:
@@ -237,7 +255,7 @@ def policy_sample(net: torch.nn.Module, env: bb.BitState, draws,
     return obs, legal, action, logp, value
 
 
-def masked_step(env: bb.BitState, rand_left: torch.Tensor,
+def masked_step(env, rand_left: torch.Tensor,
                 actions: torch.Tensor, do: torch.Tensor, cfg: EnvConfig,
                 draws, rand_openings: bool = True):
     """Step games where ``do``; elsewhere unchanged.  A stepping game with
@@ -245,16 +263,16 @@ def masked_step(env: bb.BitState, rand_left: torch.Tensor,
     it down (othello.py:70-73).  ``rand_openings=False`` skips the random
     draw: the caller guarantees ``rand_left`` is all zeros.  Returns
     ``(env, rand_left)``."""
+    eng = engine_of(env)
     if rand_openings:
         use_rand = (rand_left > 0) & do
-        t = draws.legal_index(bb.popcount(env.legal))
-        actions = torch.where(use_rand, bb.random_legal_bit(env.legal, t),
-                              actions)
+        t = draws.legal_index(eng.legal_count(env))
+        actions = torch.where(use_rand, eng.random_legal(env, t), actions)
         rand_left = torch.where(use_rand, rand_left - 1, rand_left)
-    return _ENGINE.step_where(env, actions, do, cfg), rand_left
+    return eng.step_where(env, actions, do, cfg), rand_left
 
 
-def advance_opponent(net: torch.nn.Module, env: bb.BitState,
+def advance_opponent(net: torch.nn.Module, env,
                      rand_left: torch.Tensor, pcolor: torch.Tensor,
                      cfg: EnvConfig, draws, rand_openings: bool = True):
     """Step opponent-to-move games until every game has ended or is at the
@@ -274,13 +292,13 @@ def advance_opponent(net: torch.nn.Module, env: bb.BitState,
                        "plies in a row: the game state is corrupt")
 
 
-def reset_done(env: bb.BitState, rand_left: torch.Tensor,
-               pcolor: torch.Tensor, done: torch.Tensor, draws,
+def reset_done(env, rand_left: torch.Tensor, pcolor: torch.Tensor,
+               done: torch.Tensor, cfg: EnvConfig, draws,
                init_rand_steps: int):
     """Reset finished games to the opening with fresh colours and, with
     random openings, fresh random-opening counts.  Returns ``(env,
     rand_left, pcolor)``."""
-    env = _ENGINE.reset_where(env, done)
+    env = engine_of(env).reset_where(env, done, cfg)
     n, device = done.shape[0], done.device
     if init_rand_steps > 0:
         rand_left = torch.where(
@@ -289,7 +307,7 @@ def reset_done(env: bb.BitState, rand_left: torch.Tensor,
     return env, rand_left, torch.where(done, new_color, pcolor)
 
 
-def protagonist_act(net: torch.nn.Module, env: bb.BitState,
+def protagonist_act(net: torch.nn.Module, env,
                     rand_left: torch.Tensor, cfg: EnvConfig, draws,
                     logp_mode: str = "masked", rand_openings: bool = True,
                     act_override: Override | None = None):
@@ -304,21 +322,38 @@ def protagonist_act(net: torch.nn.Module, env: bb.BitState,
                                    logp=logp, value=value, legal=legal)
 
 
+def collector_engine(cfg: EnvConfig, force_plane: bool, env=None):
+    """``get_engine(cfg, force_plane)``; with ``env``, a state built on
+    the other engine raises (``force_plane`` must match the
+    ``selfplay_init`` that built it)."""
+    eng = get_engine(cfg, force_plane)
+    if env is not None and engine_of(env) is not eng:
+        raise ValueError(
+            f"the collector state is a {type(env).__name__}, but "
+            f"board_size={cfg.board_size}, force_plane={force_plane} "
+            f"selects the {type(eng).__name__}: pass the force_plane of "
+            "the selfplay_init that built it")
+    return eng
+
+
 @torch.no_grad()
 def selfplay_init(net: torch.nn.Module, cfg: EnvConfig, num_envs: int,
                   draws, init_rand_steps: int = 0,
                   logp_mode: str = "masked", opp_net=None,
                   device=None,
-                  act_override: Override | None = None) -> SelfPlayState:
+                  act_override: Override | None = None,
+                  force_plane: bool = False) -> SelfPlayState:
     """Fresh games and the first protagonist decision (the initial
-    pending transition), on ``device`` (default: the net's).
-    ``opp_net`` plays the non-learning colour; ``None`` is mirror
-    self-play (JAX self_play.py:294-335).  ``act_override`` replaces the
-    protagonist's sampled action; opponent plies keep sampling."""
+    pending transition), on ``device`` (default: the net's), on the
+    engine of ``get_engine(cfg, force_plane)``.  ``opp_net`` plays the
+    non-learning colour; ``None`` is mirror self-play (JAX
+    self_play.py:294-335).  ``act_override`` replaces the protagonist's
+    sampled action; opponent plies keep sampling."""
     if device is None:
         device = next(net.parameters()).device
     rand_openings = init_rand_steps > 0
-    env = bb.bit_reset(num_envs, device)
+    env = collector_engine(cfg, force_plane).reset_batch(num_envs, cfg,
+                                                          device)
     if rand_openings:
         rand_left = draws.rand_left(num_envs, init_rand_steps, device)
     else:
@@ -338,12 +373,15 @@ def selfplay_init(net: torch.nn.Module, cfg: EnvConfig, num_envs: int,
 def collect_rollout(net: torch.nn.Module, sp: SelfPlayState, cfg: EnvConfig,
                     num_steps: int, draws, init_rand_steps: int = 0,
                     logp_mode: str = "masked", opp_net=None,
-                    act_override: Override | None = None):
+                    act_override: Override | None = None,
+                    force_plane: bool = False):
     """``num_steps`` slots; returns ``(new_state, Transition (T, N, ...),
     bootstrap_value (N,))``.  The bootstrap value is the behaviour value of
     the state after the last emitted transition, the new pending's.
     ``opp_net`` plays the non-learning colour (``None``: ``net``);
-    ``act_override`` picks the protagonist's actions."""
+    ``act_override`` picks the protagonist's actions; ``force_plane`` must
+    match the ``selfplay_init`` that built ``sp``."""
+    eng = collector_engine(cfg, force_plane, sp.env)
     opp_net = net if opp_net is None else opp_net
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
@@ -357,14 +395,14 @@ def collect_rollout(net: torch.nn.Module, sp: SelfPlayState, cfg: EnvConfig,
             opp_net, env, rand_left, pcolor, cfg, draws, rand_openings)
         syncs += n_sync
         done = env.terminated
-        outcome = _ENGINE.outcome_for(env, pcolor, cfg)
+        outcome = eng.outcome_for(env, pcolor, cfg)
         reward = torch.where(done, outcome, torch.zeros_like(outcome))
         slots.append(Transition(obs=pending.obs, action=pending.action,
                                 logp=pending.logp, value=pending.value,
                                 reward=reward, done=done,
                                 legal=pending.legal))
         env, rand_left, pcolor = reset_done(env, rand_left, pcolor, done,
-                                            draws, init_rand_steps)
+                                            cfg, draws, init_rand_steps)
         env, rand_left, n_sync = advance_opponent(
             opp_net, env, rand_left, pcolor, cfg, draws, rand_openings)
         syncs += n_sync
@@ -382,7 +420,8 @@ def collect_rollout_time_limited(net: torch.nn.Module, sp: SelfPlayState,
                                  elapsed: torch.Tensor, cfg: EnvConfig,
                                  num_steps: int, max_episode_plies: int,
                                  draws, init_rand_steps: int = 0,
-                                 logp_mode: str = "masked", opp_net=None):
+                                 logp_mode: str = "masked", opp_net=None,
+                                 force_plane: bool = False):
     """``collect_rollout`` with an episode step cap (JAX
     ``collect_rollout_time_limited``; TimeLimit + TimeLimitMask,
     envs.py:110-119): an episode whose protagonist has taken
@@ -394,6 +433,7 @@ def collect_rollout_time_limited(net: torch.nn.Module, sp: SelfPlayState,
     decisions including the pending one (ones after ``selfplay_init``).
     Returns ``(state, elapsed, rollout, bad_transition (T, N) bool,
     bootstrap_value)``."""
+    eng = collector_engine(cfg, force_plane, sp.env)
     opp_net = net if opp_net is None else opp_net
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
@@ -408,7 +448,7 @@ def collect_rollout_time_limited(net: torch.nn.Module, sp: SelfPlayState,
         syncs += n_sync
         truncated = elapsed >= max_episode_plies
         done = env.terminated | truncated
-        outcome = _ENGINE.outcome_for(env, pcolor, cfg)
+        outcome = eng.outcome_for(env, pcolor, cfg)
         reward = torch.where(env.terminated, outcome,
                              torch.zeros_like(outcome))
         slots.append(Transition(obs=pending.obs, action=pending.action,
@@ -417,7 +457,7 @@ def collect_rollout_time_limited(net: torch.nn.Module, sp: SelfPlayState,
                                 legal=pending.legal))
         bad.append(truncated)
         env, rand_left, pcolor = reset_done(env, rand_left, pcolor, done,
-                                            draws, init_rand_steps)
+                                            cfg, draws, init_rand_steps)
         elapsed = torch.where(done, torch.zeros_like(elapsed), elapsed)
         env, rand_left, n_sync = advance_opponent(
             opp_net, env, rand_left, pcolor, cfg, draws, rand_openings)
@@ -457,7 +497,7 @@ class RecPending(Pending):
 
 @dataclasses.dataclass
 class RecSelfPlayState:
-    env: bb.BitState
+    env: object              # BitState or OthelloState, as SelfPlayState
     rand_left: torch.Tensor
     pcolor: torch.Tensor
     pending: RecPending
@@ -466,13 +506,13 @@ class RecSelfPlayState:
     host_syncs: int = 0
 
 
-def policy_sample_rec(net: torch.nn.Module, env: bb.BitState, draws,
-                      h: torch.Tensor):
+def policy_sample_rec(net: torch.nn.Module, env, draws, h: torch.Tensor):
     """Recurrent ``policy_sample``: ``(obs, legal, action, logp, value,
     h')``.  Resets zero ``h`` at game boundaries, so the mask is all
     ones."""
-    obs = _ENGINE.featurize(env)
-    legal = _ENGINE.legal_flat(env)
+    eng = engine_of(env)
+    obs = eng.featurize(env)
+    legal = eng.legal_flat(env)
     logits, value, h_new = net(obs, h, torch.ones(h.shape[0],
                                                   device=h.device))
     dist = MaskedCategorical(logits=logits, mask=legal)
@@ -480,7 +520,7 @@ def policy_sample_rec(net: torch.nn.Module, env: bb.BitState, draws,
     return obs, legal, action, dist.log_prob(action), value, h_new
 
 
-def advance_opponent_rec(net: torch.nn.Module, env: bb.BitState,
+def advance_opponent_rec(net: torch.nn.Module, env,
                          rand_left: torch.Tensor, pcolor: torch.Tensor,
                          h_opp: torch.Tensor, cfg: EnvConfig, draws):
     """Recurrent ``advance_opponent``: the opponent's hidden stream
@@ -501,7 +541,7 @@ def advance_opponent_rec(net: torch.nn.Module, env: bb.BitState,
                        "plies in a row: the game state is corrupt")
 
 
-def _rec_protagonist_act(net: torch.nn.Module, env: bb.BitState,
+def _rec_protagonist_act(net: torch.nn.Module, env,
                          rand_left: torch.Tensor, h_prot: torch.Tensor,
                          cfg: EnvConfig, draws):
     """The protagonist decides from ``h_prot`` and steps; returns ``(env,
@@ -519,13 +559,16 @@ def _rec_protagonist_act(net: torch.nn.Module, env: bb.BitState,
 def selfplay_init_recurrent(net: torch.nn.Module, cfg: EnvConfig,
                             num_envs: int, hidden_size: int, draws,
                             init_rand_steps: int = 0, opp_net=None,
-                            device=None) -> RecSelfPlayState:
+                            device=None,
+                            force_plane: bool = False) -> RecSelfPlayState:
     """Fresh games and the first protagonist decision from zero hidden
-    states, on ``device`` (default: the net's)."""
+    states, on ``device`` (default: the net's), on the engine of
+    ``get_engine(cfg, force_plane)``."""
     if device is None:
         device = next(net.parameters()).device
     opp_net = net if opp_net is None else opp_net
-    env = bb.bit_reset(num_envs, device)
+    env = collector_engine(cfg, force_plane).reset_batch(num_envs, cfg,
+                                                          device)
     rand_left = draws.rand_left(num_envs, init_rand_steps, device)
     pcolor = draws.colors(num_envs, device)
     h_prot = torch.zeros(num_envs, hidden_size, device=device)
@@ -542,10 +585,14 @@ def selfplay_init_recurrent(net: torch.nn.Module, cfg: EnvConfig,
 @torch.no_grad()
 def collect_rollout_recurrent(net: torch.nn.Module, sp: RecSelfPlayState,
                               cfg: EnvConfig, num_steps: int, draws,
-                              init_rand_steps: int = 0, opp_net=None):
+                              init_rand_steps: int = 0, opp_net=None,
+                              force_plane: bool = False):
     """``num_steps`` slots with the hidden states threaded; returns
     ``(state, rollout (T, N, ...), h0 (N, H), masks (T, N), bootstrap
-    (N,))``, the inputs ``agents.ppo.ppo_update_recurrent`` replays."""
+    (N,))``, the inputs ``agents.ppo.ppo_update_recurrent`` replays.
+    ``force_plane`` must match the ``selfplay_init_recurrent`` that built
+    ``sp``."""
+    eng = collector_engine(cfg, force_plane, sp.env)
     opp_net = net if opp_net is None else opp_net
     if num_steps < 1:
         raise ValueError(f"num_steps must be >= 1, got {num_steps}")
@@ -559,14 +606,14 @@ def collect_rollout_recurrent(net: torch.nn.Module, sp: RecSelfPlayState,
             opp_net, env, rand_left, pcolor, h_opp, cfg, draws)
         syncs += n_sync
         done = env.terminated
-        outcome = _ENGINE.outcome_for(env, pcolor, cfg)
+        outcome = eng.outcome_for(env, pcolor, cfg)
         reward = torch.where(done, outcome, torch.zeros_like(outcome))
         slots.append(Transition(obs=pending.obs, action=pending.action,
                                 logp=pending.logp, value=pending.value,
                                 reward=reward, done=done,
                                 legal=pending.legal))
         env, rand_left, pcolor = reset_done(env, rand_left, pcolor, done,
-                                            draws, init_rand_steps)
+                                            cfg, draws, init_rand_steps)
         # Both hidden streams start again for fresh games.
         h_prot = torch.where(done[:, None], torch.zeros_like(h_prot), h_prot)
         h_opp = torch.where(done[:, None], torch.zeros_like(h_opp), h_opp)

@@ -1,11 +1,12 @@
-"""Batched tournaments on bitboard state — the port of
+"""Batched tournaments at any board size — the port of
 ``train/tournament.py`` (``play_games``/``tally``), of
 ``train/ppo_trainer.py::net_tournament_policy``, and of the two-colour
 protocol of ``cli/eval_checkpoint.py``.
 
-Games step in lockstep, one ``ops.step.step_where`` a ply (on the card
-one launch of the ply kernel, which also floods the legal masks), until
-all have ended or ``max_plies`` plies ran.
+Games step in lockstep on ``core.engine.get_engine(cfg)``, one
+``step_where`` a ply (on 8x8 one launch of the ply kernel, which also
+floods the legal masks; on planes the eager plane rules), until all have
+ended or ``max_plies`` plies ran.
 Colours are fixed per call (black = first policy).  Random openings keep
 ``OthelloEnv``'s semantics (othello.py:151-199): each game draws
 ``2 * U{0..init_rand_steps//2}`` and its first that many plies, from
@@ -18,39 +19,48 @@ from typing import Callable
 
 import torch
 
-from gymothelloenv_tpu_torch.core import bitboard as bb
+from gymothelloenv_tpu_torch.core.engine import engine_of, get_engine
 from gymothelloenv_tpu_torch.core.featurize import make_state
 from gymothelloenv_tpu_torch.core.state import EnvConfig
-from gymothelloenv_tpu_torch.envs.bit_vector_env import draw_rand_left
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
-from gymothelloenv_tpu_torch.ops import step
+from gymothelloenv_tpu_torch.train.self_play import Draws
 from gymothelloenv_tpu_torch.utils.device import (resolve_device,
                                                   use_float32)
 
-PolicyFn = Callable[[bb.BitState, "torch.Generator | None"], torch.Tensor]
+# act(state, generator) -> int64 actions, on a BitState or OthelloState.
+PolicyFn = Callable[[object, "torch.Generator | None"], torch.Tensor]
 
 
 def play_games(act_black: PolicyFn, act_white: PolicyFn, num_games: int,
                init_rand_steps: int = 0, max_plies: int = 0,
                generator: torch.Generator | None = None,
-               cfg: EnvConfig = EnvConfig(), device=None) -> torch.Tensor:
-    """Play ``num_games`` games; returns winners int8 (N,) (+1 white,
-    -1 black, 0 draw or unfinished).  ``max_plies <= 0`` means 64, enough
-    for any legal game."""
+               cfg: EnvConfig = EnvConfig(), device=None,
+               draws=None) -> torch.Tensor:
+    """Play ``num_games`` games on ``cfg``'s board; returns winners int8
+    (N,) (+1 white, -1 black, 0 draw or unfinished).  ``max_plies <= 0``
+    means ``B * B``, enough for any legal game.  ``draws``
+    (``train.self_play.Draws`` over ``generator`` by default; the parity
+    tests inject ``InjectedDraws``) gives the random-opening counts and
+    each ply's random legal move; the policies sample from
+    ``generator``."""
     device = resolve_device(device)
     if max_plies <= 0:
         max_plies = cfg.num_actions
-    state = bb.bit_reset(num_games, device)
-    rand_left = draw_rand_left(num_games, init_rand_steps, generator, device)
+    if draws is None:
+        draws = Draws(generator)
+    eng = get_engine(cfg)
+    state = eng.reset_batch(num_games, cfg, device)
+    rand_left = draws.rand_left(num_games, init_rand_steps, device)
     ply = 0
     while ply < max_plies and not bool(state.terminated.all()):
-        a_rand = bb.random_legal_bit(state.legal, generator=generator)
+        a_rand = eng.random_legal(
+            state, draws.legal_index(eng.legal_count(state)))
         a_black = act_black(state, generator)
         a_white = act_white(state, generator)
         action = torch.where(rand_left > 0, a_rand,
                              torch.where(state.turn == -1, a_black, a_white))
         live = ~state.terminated
-        state = step.step_where(state, action, live, cfg)
+        state = eng.step_where(state, action, live, cfg)
         rand_left = torch.where(live, (rand_left - 1).clamp(min=0),
                                 rand_left)
         ply += 1
@@ -69,11 +79,11 @@ def net_tournament_policy(net: torch.nn.Module) -> PolicyFn:
     Sets float32 numerics (``use_float32``)."""
     use_float32()
 
-    def act(state: bb.BitState, generator=None) -> torch.Tensor:
+    def act(state, generator=None) -> torch.Tensor:
         with torch.inference_mode():
             logits, _ = net(make_state(state))
-            dist = MaskedCategorical(logits=logits,
-                                     mask=bb.unpack_flat(state.legal))
+            dist = MaskedCategorical(
+                logits=logits, mask=engine_of(state).legal_flat(state))
             return dist.sample(generator=generator)
     return act
 

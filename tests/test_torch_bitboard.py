@@ -10,6 +10,8 @@ import torch
 from gymothelloenv_tpu.core import bitboard as bb
 from gymothelloenv_tpu.core import bitops
 from gymothelloenv_tpu_torch.core import bitboard as tb
+from gymothelloenv_tpu_torch.core.state import select_games
+from gymothelloenv_tpu_torch.ops import step
 from torch_port_helpers import (assert_same_state, legal_lists, pair,
                                 random_states, to_port, word)
 
@@ -138,9 +140,10 @@ def test_bit_step_matches_jax(sudden, disk_reward, states):
     actions = np.asarray(actions, np.int32)
     want = jax.jit(bb.bit_step, static_argnums=(2, 3))(
         states, jnp.asarray(actions), sudden, disk_reward)
-    got = tb.bit_step(to_port(states), torch.from_numpy(actions),
-                      sudden_death_on_invalid_move=sudden,
-                      num_disk_as_reward=disk_reward)
+    got = step.bit_step(to_port(states),
+                        torch.from_numpy(actions.astype(np.int64)),
+                        sudden_death_on_invalid_move=sudden,
+                        num_disk_as_reward=disk_reward)
     sel = jax.tree.map(lambda x: x[live], want.state)
     port_sel = tb.BitState(**{k: v[torch.from_numpy(live)]
                               for k, v in vars(got.state).items()})
@@ -163,13 +166,13 @@ def test_bit_step_full_games_match_jax():
         actions = np.array([rng.choice(np.nonzero(r)[0]) if r.any() else 0
                             for r in legal], np.int32)
         res = jstep(ref, jnp.asarray(actions))
-        pres = tb.bit_step(port, torch.from_numpy(actions))
+        pres = step.bit_step(port, torch.from_numpy(actions.astype(np.int64)))
         live = ~np.asarray(ref.terminated)
         np.testing.assert_array_equal(pres.reward.numpy()[live],
                                       np.asarray(res.reward)[live])
         ref = jax.tree.map(lambda a, b: jnp.where(jnp.asarray(live), a, b),
                            res.state, ref)
-        port = tb.select_state(torch.from_numpy(live), pres.state, port)
+        port = select_games(torch.from_numpy(live), pres.state, port)
         assert_same_state(port, ref, f"ply {ply}")
     assert bool(port.terminated.all())
 

@@ -11,7 +11,8 @@ from gymothelloenv_tpu.core.engine import BitEngine as JaxBitEngine
 from gymothelloenv_tpu.core.state import EnvConfig as JaxEnvConfig
 from gymothelloenv_tpu.envs import bit_vector_env as jenv
 from gymothelloenv_tpu_torch.core import bitboard as tb
-from gymothelloenv_tpu_torch.core.engine import BitEngine
+from gymothelloenv_tpu_torch.core.engine import (BitEngine, PlaneEngine,
+                                                 get_engine)
 from gymothelloenv_tpu_torch.core.featurize import make_state
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.envs import bit_vector_env as penv
@@ -137,7 +138,11 @@ def test_engine_step_where_and_reset_where(states):
 
 
 def test_env_config_is_8x8_only():
-    with pytest.raises(ValueError):
-        EnvConfig(board_size=6)
+    """The config's board was 8x8 only; other sizes now run on the plane
+    engine (tests/test_torch_plane_state.py), and 8x8 stays the default
+    on the bitboard engine."""
     assert EnvConfig().num_actions == 64
+    assert EnvConfig(board_size=6).num_actions == 36
+    assert isinstance(get_engine(EnvConfig()), BitEngine)
+    assert isinstance(get_engine(EnvConfig(board_size=6)), PlaneEngine)
     tb.bit_reset(1, device="cpu")

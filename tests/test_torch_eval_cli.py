@@ -25,10 +25,12 @@ from gymothelloenv_tpu.core.state import EnvConfig as JaxEnvConfig
 from gymothelloenv_tpu.train import ppo_trainer as jtrainer
 from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
 from gymothelloenv_tpu_torch.cli import eval_checkpoint, tournament
+from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.scripts import ladder
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig,
-                                                       load_eval_policy)
+                                                       load_eval_policy,
+                                                       net_lookahead_policy)
 from gymothelloenv_tpu_torch.utils import checkpoint as ck
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
@@ -86,11 +88,19 @@ def test_eval_checkpoint_same_seed_same_games(tiny_ckpt):
 
 
 @pytest.mark.parametrize("flag", ["--board-size=6"])
-def test_eval_checkpoint_refuses_unported_flags(flag):
-    with pytest.raises(SystemExit) as err:
-        eval_checkpoint.build_parser().parse_args(["--load", "x.msgpack",
-                                                   flag])
-    assert err.value.code == 2
+def test_eval_checkpoint_refuses_unported_flags(flag, tiny_ckpt):
+    """``--board-size 6`` parses now; what stays unported at B != 8 is the
+    value-lookahead search, which raises naming its ROADMAP item; and an
+    8x8 checkpoint on a 6x6 board is refused."""
+    args = eval_checkpoint.build_parser().parse_args(["--load", "x.msgpack",
+                                                      flag])
+    assert args.board_size == 6
+    net, _ = load_eval_policy(tiny_ckpt, EnvConfig(), "cpu")
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        net_lookahead_policy(net, EnvConfig(board_size=6,
+                                            num_disk_as_reward=True))
+    with pytest.raises(ValueError, match="8x8 board"):
+        eval_checkpoint.main(["--device", "cpu", "--load", tiny_ckpt, flag])
 
 
 def test_tournament_pairing_and_round_robin():

@@ -5,10 +5,12 @@ are process-wide, so every test starts from both on and restores them."""
 
 import contextlib
 import io
+import os
 
 import pytest
 import torch
 
+from gymothelloenv_tpu_torch.cli import eval_checkpoint
 from gymothelloenv_tpu_torch.cli import ppo_self_play as cli
 from gymothelloenv_tpu_torch.models.nets import make_policy_net
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
@@ -16,6 +18,10 @@ from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
 from gymothelloenv_tpu_torch.train.tournament import net_tournament_policy
 from gymothelloenv_tpu_torch.utils.device import FLOAT32, use_float32
 from torch_port_helpers import one_torch_thread  # noqa: F401
+
+REC2000 = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "data", "selfplay",
+    "ppo_recurrent_2000.msgpack")
 
 
 def _flags():
@@ -59,4 +65,16 @@ def test_trainer_constructor_leaves_tf32_off(tf32_on):
 
 def test_net_tournament_policy_leaves_tf32_off(tf32_on):
     net_tournament_policy(make_policy_net(1, 8, seed=0, device="cpu"))
+    assert _flags() == (False, False)
+
+
+def test_stateful_eval_checkpoint_leaves_tf32_off(tf32_on):
+    """F2: the recurrent checkpoint through ``eval_checkpoint`` (its
+    stateful path, ``load_eval_policy`` -> ``play_games_recurrent`` ->
+    ``net_sampling_cell``) leaves both flags off."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eval_checkpoint.main(["--load", REC2000, "--opponent", "greedy",
+                              "--games", "2", "--device", "cpu"])
+    assert "recurrent" in out.getvalue().splitlines()[0]
     assert _flags() == (False, False)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from gymothelloenv_tpu_torch.core import bitboard as tb
+from gymothelloenv_tpu_torch.ops import step
 from gymothelloenv_tpu_torch.policies.scripted import greedy_policy
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -32,7 +33,7 @@ def replay(game):
         legal = torch.nonzero(tb.unpack_flat(s.legal)[0])[:, 0].tolist()
         assert legal == sorted(rec["legal"]), f"ply {i}"
         states.append(s)
-        r = tb.bit_step(s, torch.tensor([rec["action"]]))
+        r = step.bit_step(s, torch.tensor([rec["action"]]))
         assert float(r.reward[0]) == rec["reward"], f"ply {i}"
         assert bool(r.done[0]) == rec["done"], f"ply {i}"
         s = r.state

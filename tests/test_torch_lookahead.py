@@ -32,7 +32,7 @@ from gymothelloenv_tpu.models.nets import PolicyNet as JaxPolicyNet
 from gymothelloenv_tpu.train import ppo_trainer as jtrainer
 from gymothelloenv_tpu.train import self_play as jsp
 from gymothelloenv_tpu_torch.core import bitboard as tb
-from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.core.state import EnvConfig, index_games
 from gymothelloenv_tpu_torch.models.convert import policy_net_from_flax
 from gymothelloenv_tpu_torch.policies import scripted
 from gymothelloenv_tpu_torch.train import ppo_trainer
@@ -57,7 +57,7 @@ def _states():
     jstate = random_states(STATES, SEED, max_plies=64)
     port = to_port(jstate)
     node, action = torch.nonzero(tb.unpack_flat(port.legal), as_tuple=True)
-    child = tb.bit_step_plain(tb.index_state(port, node), action).state
+    child = tb.bit_step_plain(index_games(port, node), action).state
     flags = {"ended": port.terminated}
     for kind, hit in (("quirk", (child.turn == port.turn[node])
                        & ~child.terminated),
@@ -79,7 +79,7 @@ def _pick(counts, offset=0):
 
 
 def _port(idx):
-    return tb.index_state(_states()[1], idx)
+    return index_games(_states()[1], idx)
 
 
 def _jax(idx):

@@ -22,6 +22,7 @@ from gymothelloenv_tpu.core.state import EnvConfig as JaxEnvConfig
 from gymothelloenv_tpu.core.state import OthelloState
 from gymothelloenv_tpu.policies.scripted import maximin_action as jax_maximin
 from gymothelloenv_tpu_torch.core import bitboard as tb
+from gymothelloenv_tpu_torch.ops import step
 from gymothelloenv_tpu_torch.policies import scripted
 from torch_port_helpers import one_torch_thread  # noqa: F401
 from torch_port_helpers import random_states, to_port
@@ -171,7 +172,7 @@ def test_golden_transcripts(game, colour, depth):
         if rec["turn"] == colour:
             states.append(s)
             actions.append(rec["action"])
-        s = tb.bit_step(s, torch.tensor([rec["action"]])).state
+        s = step.bit_step(s, torch.tensor([rec["action"]])).state
     batch = tb.BitState(**{k: torch.cat([getattr(x, k) for x in states])
                            for k in vars(states[0])})
     got = scripted.maximin_action(batch, depth)

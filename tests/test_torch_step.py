@@ -19,6 +19,7 @@ from gymothelloenv_tpu.core import bitboard as bb
 from gymothelloenv_tpu.core.engine import BitEngine as JaxBitEngine
 from gymothelloenv_tpu.core.state import EnvConfig as JaxEnvConfig
 from gymothelloenv_tpu_torch.core import bitboard as tb
+from gymothelloenv_tpu_torch.core.engine import BitEngine
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.ops import _build
 from gymothelloenv_tpu_torch.ops import step
@@ -97,8 +98,8 @@ def test_step_modes_match_jax(mode, sudden, disk, inputs):
                             do & np.asarray(ref.done))
         cfg = EnvConfig(sudden_death_on_invalid_move=sudden,
                         num_disk_as_reward=disk)
-        assert_same_state(step.step_where(to_port(states), action,
-                                          torch.from_numpy(do), cfg), want)
+        assert_same_state(BitEngine().step_where(
+            to_port(states), action, torch.from_numpy(do), cfg), want)
     else:
         # bitvec_step's select (envs/bit_vector_env.py): finished games
         # become bit_reset's opening.  test_torch_env.py holds the whole

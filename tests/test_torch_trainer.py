@@ -4,7 +4,7 @@ rates in [0, 1], the metrics logger writes JSONL, the checkpoint, pool and
 chain flags work; the recurrent, frame-stacked, time-limited and bfloat16
 trainers run through the CLI (the pool with recurrent anchors too) and
 refuse what JAX's trainer refuses, with its messages; ``--board-size``
-other than 8 is an argparse error."""
+other than 8 trains on planes, where the lookahead collection raises."""
 
 import contextlib
 import io
@@ -123,12 +123,13 @@ def test_cli_runs_on_cpu_and_logs_jsonl(tmp_path):
                                   "--max-episode-plies=30",
                                   "--board-size=6"])
 def test_cli_rejects_unported_flags(flag):
-    """``--board-size`` other than 8 stays an argparse error; the flags of
-    the last slice parse, with JAX's defaults when absent."""
+    """The flags of the last slices parse, with JAX's defaults when
+    absent; ``--board-size 6`` parses, and the lookahead collection on
+    that board raises naming its ROADMAP item."""
     if flag == "--board-size=6":
-        with pytest.raises(SystemExit) as err:
-            cli.build_parser().parse_args([flag])
-        assert err.value.code == 2
+        assert cli.build_parser().parse_args([flag]).board_size == 6
+        with pytest.raises(NotImplementedError, match="item 8b"):
+            cli.main(CLI_SMALL + [flag, "--lookahead-collect"])
         return
     name, _, value = flag[2:].replace("-", "_").partition("=")
     default = vars(cli.build_parser().parse_args([]))[name]

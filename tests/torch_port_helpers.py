@@ -1,8 +1,9 @@
 """Shared helpers for the PyTorch port's parity tests (tests/test_torch_*.py):
 random reachable positions made with the JAX engine from a numpy seed,
-conversion of JAX word pairs to the port's 64-bit words and of JAX
-bitboard states to the plane states of JAX's search, and the exact stub
-value net of JAX's search tests."""
+conversion of JAX word pairs to the port's 64-bit words, of JAX
+bitboard states to the plane states of JAX's search and of JAX plane
+states to the port's, and the exact stub value net of JAX's search
+tests."""
 
 import functools
 
@@ -13,8 +14,12 @@ import pytest
 import torch
 
 from gymothelloenv_tpu.core import bitboard as bb
-from gymothelloenv_tpu.core.state import OthelloState
+from gymothelloenv_tpu.core import state as jcore
+from gymothelloenv_tpu.core.state import EnvConfig, OthelloState
 from gymothelloenv_tpu_torch.core import bitboard as tb
+from gymothelloenv_tpu_torch.core import state as core
+
+PLANE_FIELDS = ("board", "turn", "legal", "terminated", "winner")
 
 
 def pair(p) -> np.ndarray:
@@ -45,6 +50,44 @@ def assert_same_state(port: tb.BitState, ref: bb.BitState, msg=""):
         np.testing.assert_array_equal(getattr(port, name).numpy(),
                                       np.asarray(getattr(ref, name)),
                                       err_msg=f"{name} {msg}")
+
+
+def plane_to_port(s: OthelloState) -> core.OthelloState:
+    """A JAX plane state as the port's ``OthelloState``."""
+    return core.OthelloState(**{f: torch.from_numpy(np.array(getattr(s, f)))
+                                for f in PLANE_FIELDS})
+
+
+def assert_same_planes(port: core.OthelloState, ref, msg=""):
+    """Every field of a port plane state equal to a JAX one, dtype too."""
+    for f in PLANE_FIELDS:
+        got, want = getattr(port, f).numpy(), np.asarray(getattr(ref, f))
+        assert got.dtype == want.dtype, (f, got.dtype, want.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=f"{f} {msg}")
+
+
+@functools.cache
+def plane_positions(b: int, n: int = 64, seed: int = 0):
+    """JAX plane states of a random playout, each game stopped after its
+    own number of plies (terminal ones included)."""
+    cfg = EnvConfig(board_size=b)
+    step = jax.jit(jax.vmap(jcore.step, in_axes=(0, 0, None)),
+                   static_argnums=2)
+    rng = np.random.RandomState(seed)
+    stop = rng.randint(0, b * b, n)
+    s = jax.jit(jax.vmap(lambda _: jcore.reset(cfg)))(jnp.arange(n))
+    for ply in range(b * b):
+        live = (stop > ply) & ~np.asarray(s.terminated)
+        if not live.any():
+            break
+        legal = np.asarray(s.legal)
+        a = np.array([rng.choice(np.nonzero(r)[0]) if r.any() else 0
+                      for r in legal], np.int32)
+        new = step(s, jnp.asarray(a), cfg).state
+        s = jax.tree.map(lambda x, o: jnp.where(
+            jnp.asarray(live).reshape((-1,) + (1,) * (x.ndim - 1)), x, o),
+            new, s)
+    return s
 
 
 def othello_state(s: bb.BitState) -> OthelloState:
