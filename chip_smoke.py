@@ -85,12 +85,28 @@ set to 0 just before it and read just after:
     greedy) and --board-size 6 (maximin-2 vs greedy), cli/eval_checkpoint
     .py --board-size 6 on a seeded board-6 wide2 checkpoint vs maximin-1,
     200 games each, and plane maximin card = CPU on 512 states
-    ([plane_eval]).
+    ([plane_eval]);
+  * the value-lookahead search on planes at B = 6 and 10 (depth 1, 2,
+    beam-3 and the recurrent depth 1 card = CPU on a seeded wide2 net, ms
+    a decision for 200 games), the 8x8 plane search = the bitboard one,
+    one B1 launch a level, and 4 updates of cli/ppo_self_play.py
+    --board-size 6 --lookahead-collect --lookahead-mix 0.25 at wide2, N
+    512, T 32 ([plane_lookahead]);
+  * cli/teacher_vs_student.py at JAX job 52's width (wide2, N 1024, T 32,
+    the teacher warm-started from data/selfplay/ppo_wide2_4k.msgpack) for
+    3 chunks, one B1 launch a ply, a save/load round trip, and the
+    student's weighted update card vs CPU ([teacher_student]);
+  * cli/dqn_train.py at JAX job 60's configuration (N 1024, 512 plies,
+    batch 4096, PER, double, dueling, n-step 3, a 1M replay) for 2
+    chunks, a checkpoint round trip, the PER sampler on the 1M ring and
+    one update card vs CPU, and one chunk against the greedy opponent
+    with the kernels of a ply ([dqn]).
 
-It reads no file outside gymothelloenv_tpu_torch/ (the nets are seeded
-inits; the checkpoints it reads are the ones it wrote, in a temporary
-directory) and exits non-zero on any failure, without a CUDA card, or when
-run outside a checkout of the repository.
+It reads one file outside gymothelloenv_tpu_torch/, the committed
+data/selfplay/ppo_wide2_4k.msgpack (the teacher's warm start); its other
+nets are seeded inits and the checkpoints it reads are the ones it wrote,
+in a temporary directory.  It exits non-zero on any failure, without a
+CUDA card, or when run outside a checkout of the repository.
 
 K1 is held against its plain version at every lane count (1, 2, 4, 8) on
 injected words (also at a ragged N and at N = 1) and on Philox, and timed
@@ -281,6 +297,32 @@ PLANE_TRAIN_BOARD = 6
 PLANE_EVAL_GAMES = 200
 PLANE_MAXIMIN_N = 512
 PLANE_MAXIMIN = ((6, 2), (10, 1))
+# [plane_lookahead]: the search on planes at PLA_SIZES, PLA_GAMES games
+# (decisions timed on all, card vs CPU on PLA_CMP[depth] of them), beam k
+# PLA_BEAM; then ppo_self_play --board-size 6 --lookahead-collect
+# --lookahead-mix LA_MIX at wide2, N PLA_ENVS, T PLA_STEPS, PLA_UPDATES
+# updates (the mix's Bresenham step picks the 4th).
+PLA_SIZES, PLA_GAMES, PLA_BEAM, PLA_REPS = (6, 10), 200, 8, 3
+PLA_CMP = {1: 200, 2: 64, 3: 32}
+PLA_ENVS, PLA_STEPS, PLA_UPDATES = 512, 32, 4
+# [teacher_student]: JAX job 52's first recipe
+# (data/queue/done/52_ts_strength.job) at its width, N and T, 3 chunks of
+# its 1500; the student's update card vs CPU at N TS_REF_ENVS, T
+# TS_REF_STEPS.
+TS_TEACHER = "data/selfplay/ppo_wide2_4k.msgpack"
+TS_ENVS, TS_STEPS, TS_CHUNKS = 1024, 32, 3
+TS_REF_ENVS, TS_REF_STEPS = 64, 8
+# [dqn]: JAX job 60 (data/queue/done/60_dqn_after.job), 2 chunks of its
+# 60; one update card vs CPU: the loss and the refreshed priorities to
+# DQN_REF_RTOL (fp32 sums over a 4096-row batch in other orders), the
+# RMSprop step per leaf to DQN_STEP_RTOL of the leaf's largest.  With eps
+# 0.01 inside the root the step is lr * g / sqrt(nu + eps), near linear in
+# g, so it carries the gradients' relative error; the faults planted on
+# the card's update (DQN_PLANTS) must read above that limit.
+DQN_ENVS, DQN_PLIES, DQN_BATCH, DQN_INTERVAL = 1024, 512, 4096, 512
+DQN_REPLAY, DQN_CHUNKS, DQN_REF_RTOL = 1_000_000, 2, 1e-4
+DQN_STEP_RTOL = 1e-3
+DQN_PLANTS = ("eps outside the root", "momentum 0.9", "gamma^1")
 DEVICE_TYPE = "cuda"
 
 
@@ -555,6 +597,22 @@ def main():
         + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
     pf = slice8["perft"]
 
+    # 26. plane_lookahead, 27. teacher_student, 28. dqn ---------------------
+    slice9, wall = {}, {}
+    for label, phase in (
+            ("plane_lookahead", lambda: _plane_lookahead_phase(
+                torch, tb, step, dev)),
+            ("teacher_student", lambda: _teacher_student_phase(
+                torch, tb, legal_mask, step, dev)),
+            ("dqn", lambda: _dqn_phase(torch, tb, legal_mask, step, dev))):
+        t0 = time.perf_counter()
+        slice9[label] = phase()
+        wall[label] = time.perf_counter() - t0
+        say(f"[{label}] wall seconds {wall[label]:.2f}")
+    say("[search and trainers slice] wall seconds of its phases: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    later = {**slice7, **slice8, **slice9}
+
     # 11. kernels line --------------------------------------------------------
     rows = [
         dict(name="legal_mask", route="cuda",
@@ -568,9 +626,7 @@ def main():
                                "lookahead_train": la_train["k2_launches"],
                                "eval_checkpoint": evalck["k2_launches"],
                                **{k: v["k2_launches"]
-                                  for k, v in slice7.items()},
-                               **{k: v["k2_launches"]
-                                  for k, v in slice8.items()
+                                  for k, v in later.items()
                                   if k != "perft"}},
              library_ms=None, equal=True, tolerance="exact",
              shape=f"2 x {pf['k2']['boards'] // 2} boards (perft's depth-9 "
@@ -592,8 +648,7 @@ def main():
                        + la_train["bit_step_launches"]
                        + evalck["bit_step_launches"]
                        + sum(v["bit_step_launches"]
-                             for v in (*slice7.values(),
-                                       *slice8.values()))),
+                             for v in later.values())),
              launches_by_path={"eval": launches["bit_step"],
                                "train": train["bit_step_launches"],
                                "maximin": mm["launches"],
@@ -603,8 +658,7 @@ def main():
                                "eval_checkpoint":
                                    evalck["bit_step_launches"],
                                **{k: v["bit_step_launches"]
-                                  for k, v in (*slice7.items(),
-                                               *slice8.items())}},
+                                  for k, v in later.items()}},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games, where mode (the collector's)",
              perft_seconds=pf["seconds"],
@@ -612,21 +666,24 @@ def main():
              train_ms=train["ply_ms"], recurrent_train_ms=rec["ply_ms"],
              maximin=mm["timing"],
              lookahead=la["timing"], lookahead_train=la_train["seconds"],
+             plane_lookahead=slice9["plane_lookahead"]["timing"],
+             teacher_student={k: slice9["teacher_student"][k] for k in (
+                 "collect_seconds", "update_seconds", "plies")},
+             dqn={k: slice9["dqn"][k] for k in ("chunks", "greedy",
+                                                "plies")},
              **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
              replaces="no Pallas kernel: gymothelloenv_tpu/core/engine.py"
                       ":120 BitEngine.reset_where (XLA-fused)",
              launches=(train["reset_launches"] + la_train["reset_launches"]
-                       + sum(v["reset_launches"]
-                             for v in (*slice7.values(), *slice8.values())
+                       + sum(v["reset_launches"] for v in later.values()
                              if "reset_launches" in v)),
              launches_by_path={"train": train["reset_launches"],
                                "lookahead_train":
                                    la_train["reset_launches"],
                                **{k: v["reset_launches"]
-                                  for k, v in (*slice7.items(),
-                                               *slice8.items())
+                                  for k, v in later.items()
                                   if "reset_launches" in v}},
              library_ms=None, equal=True, tolerance="exact",
              shape="1024 games (the collector's)",
@@ -1368,9 +1425,9 @@ def _maximin_phase(torch, tb, ro, step, dev, gen):
     return dict(launches=launches, timing=timing)
 
 
-def _device_seconds(torch, fn):
-    """Summed device time (s) of the kernels ``fn`` runs, from
-    torch.profiler; None where the trace shows no device time."""
+def _cuda_events(torch, fn):
+    """The device events (``key_averages``) of the kernels ``fn`` runs,
+    from torch.profiler; empty where the trace shows no device time."""
     from torch.profiler import ProfilerActivity, profile
     from gymothelloenv_tpu_torch.scripts.profile_train_step import device_us
     with profile(activities=[ProfilerActivity.CPU,
@@ -1380,10 +1437,46 @@ def _device_seconds(torch, fn):
     averages = prof.key_averages()
     events = [e for e in averages
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        events = [e for e in averages if device_us(e) > 0]
-    total = sum(device_us(e) for e in events) / 1e6
+    return events or [e for e in averages if device_us(e) > 0]
+
+
+def _device_seconds(torch, fn):
+    """Summed device time (s) of the kernels ``fn`` runs, from
+    torch.profiler; None where the trace shows no device time."""
+    from gymothelloenv_tpu_torch.scripts.profile_train_step import device_us
+    total = sum(device_us(e) for e in _cuda_events(torch, fn)) / 1e6
     return total if total > 0 else None
+
+
+def _cuda_kernels(torch, fn):
+    """The number of kernels ``fn`` launches (torch.profiler); None where
+    the trace shows none."""
+    return sum(e.count for e in _cuda_events(torch, fn)) or None
+
+
+def _compare_search(torch, got, want, what):
+    """A search's card result ``got`` against the CPU's ``want``
+    (``(action, scores, margin)``): decisions equal where the CPU's margin
+    exceeds LOOKAHEAD_MARGIN, at least 90% of them held so; the same
+    actions searched; values to LOOKAHEAD_ATOL.  Returns ``(states,
+    held, exactly equal, largest value error)``."""
+    from gymothelloenv_tpu_torch.train.self_play import NEG
+    a, scores = got[0].cpu(), got[1].cpu()
+    a_w, scores_w, margin = want[0], want[1], want[2]
+    clear = margin > LOOKAHEAD_MARGIN
+    require(torch.equal(a[clear], a_w[clear]),
+            f"{what}: {int((a[clear] != a_w[clear]).sum())} decisions "
+            f"differ where the margin exceeds {LOOKAHEAD_MARGIN}")
+    require(torch.equal(scores[clear] > NEG, scores_w[clear] > NEG),
+            f"{what}: other actions searched")
+    rows = clear[:, None] & (scores_w > NEG)
+    err = float((scores - scores_w)[rows].abs().max()) if bool(
+        rows.any()) else 0.0
+    require(err <= LOOKAHEAD_ATOL, f"{what}: values differ by {err:.2e} > "
+            f"{LOOKAHEAD_ATOL}")
+    require(int(clear.sum()) >= 0.9 * a.shape[0], f"{what}: only "
+            f"{int(clear.sum())} of {a.shape[0]} decisions clear the margin")
+    return a.shape[0], int(clear.sum()), int((a == a_w).sum()), err
 
 
 def _lookahead_phase(torch, tb, ro, step, net, dev, gen):
@@ -1395,7 +1488,6 @@ def _lookahead_phase(torch, tb, ro, step, net, dev, gen):
     and the timings."""
     from gymothelloenv_tpu_torch.core.state import EnvConfig
     from gymothelloenv_tpu_torch.train import ppo_trainer
-    from gymothelloenv_tpu_torch.train.self_play import NEG
     say(f"[lookahead] start: wide2 seeded net, card vs CPU at depth 1 on "
         f"{LOOKAHEAD_NS[1]} reachable states, depth 2 on {LOOKAHEAD_NS[2]} "
         f"and beam-3 (k {LOOKAHEAD_BEAM}) on {LOOKAHEAD_NS[3]}; chunk "
@@ -1428,33 +1520,14 @@ def _lookahead_phase(torch, tb, ro, step, net, dev, gen):
     require(not plain_calls, f"the lookahead ran the ply's plain version "
             f"on the card: {plain_calls[:3]}")
 
-    def compare(got, want, what):
-        """(decisions held, exact decisions, largest value error)."""
-        a, scores, _ = (t.cpu() for t in got)
-        a_w, scores_w, margin = want
-        clear = margin > LOOKAHEAD_MARGIN
-        require(torch.equal(a[clear], a_w[clear]),
-                f"{what}: {int((a[clear] != a_w[clear]).sum())} decisions "
-                f"differ where the margin exceeds {LOOKAHEAD_MARGIN}")
-        rows = clear[:, None] & (scores_w > NEG)
-        require(torch.equal(scores[clear] > NEG, scores_w[clear] > NEG),
-                f"{what}: other actions searched")
-        err = float((scores - scores_w)[rows].abs().max()) if bool(
-            rows.any()) else 0.0
-        require(err <= LOOKAHEAD_ATOL, f"{what}: values differ by "
-                f"{err:.2e} > {LOOKAHEAD_ATOL}")
-        return int(clear.sum()), int((a == a_w).sum()), err
-
     report = {}
     for depth, n in LOOKAHEAD_NS.items():
         want = search(cpu_net, sub(cpu_state, n), depth)
-        held, exact, err = compare(card[depth], want, f"depth {depth}")
-        require(held >= 0.9 * n, f"depth {depth}: only {held} of {n} "
-                f"decisions clear the margin")
-        report[depth] = (n, held, exact, err)
-    held, exact, err = compare(chunked, tuple(t.cpu() for t in card[2]),
-                               f"chunk {LOOKAHEAD_CHUNK}")
-    report["chunk"] = (LOOKAHEAD_NS[2], held, exact, err)
+        report[depth] = _compare_search(torch, card[depth], want,
+                                        f"depth {depth}")
+    report["chunk"] = _compare_search(
+        torch, chunked, tuple(t.cpu() for t in card[2]),
+        f"chunk {LOOKAHEAD_CHUNK}")
     timing = {}
     s = sub(state, LOOKAHEAD_TIME_N)
     for depth in LOOKAHEAD_NS:
@@ -1712,17 +1785,23 @@ def _fp32_check(torch, net, dev):
 
 
 def _train_reference_phase(torch, dev, board_size=8,
-                           label="train_reference"):
+                           label="train_reference", collect=None,
+                           shape=f"N={REF_ENVS}, T={REF_STEPS}",
+                           record_free=True):
     """ppo_update on the card and on the CPU from the same params, the
     same rollout (collected on the card, on a ``board_size`` board) and
     the same shuffle words: once as a single optimizer step, once with the
     trainer's epochs and minibatches.  The latter is also run on the card
     with a planted fault (PLANTS) to show that its tolerance sees such a
-    fault.  Off 8x8 the CPU replays the card's ReLU masks
-    (``_relu_masks``): there a ReLU input that the two round to opposite
-    signs was seen to move the one-step deltas by 5e-5 and the 4 x 4
-    per-leaf reading to 11% of a leaf's largest delta, so the reference
-    holds the rest of the computation to the same bounds."""
+    fault.  Off 8x8, and for a ``collect``ed rollout, the CPU replays the
+    card's ReLU masks (``_relu_masks``): there a ReLU input that the two
+    round to opposite signs was seen to move the one-step deltas by 5e-5
+    and the 4 x 4 per-leaf reading to 11% of a leaf's largest delta, so
+    the reference holds the rest of the computation to the same bounds.
+    ``collect(net)`` (optional) gives ``(rollout, bootstrap, weights)`` on
+    the card from the seeded net in place of the self-play collector: a
+    weighted stream (``ppo_update(weights=)``).  ``record_free``: with the
+    replay, also print the readings without it (not gated)."""
     from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, Transition,
                                                     make_optimizer,
                                                     ppo_update)
@@ -1733,20 +1812,26 @@ def _train_reference_phase(torch, dev, board_size=8,
                                                          collect_rollout,
                                                          selfplay_init)
     say(f"[{label}] start: ppo_update card vs CPU, wide2, board "
-        f"{board_size}, N={REF_ENVS}, T={REF_STEPS}: one step, then 4 "
+        f"{board_size}, {shape}: one step, then 4 "
         "epochs x 4 minibatches, then the latter with each planted fault "
         "on the card")
     env_cfg = EnvConfig(board_size=board_size, num_disk_as_reward=True)
     net = make_network(env_cfg, HIDDEN, WIDTH_MULT, SEED + 1, dev).train()
-    draws = Draws(torch.Generator(dev).manual_seed(SEED + 1))
-    sp = selfplay_init(net, env_cfg, REF_ENVS, draws)
-    _, rollout, boot = collect_rollout(net, sp, env_cfg, REF_STEPS, draws)
-    inputs = {dev: (rollout, boot),
+    if collect is None:
+        draws = Draws(torch.Generator(dev).manual_seed(SEED + 1))
+        sp = selfplay_init(net, env_cfg, REF_ENVS, draws)
+        _, rollout, boot = collect_rollout(net, sp, env_cfg, REF_STEPS,
+                                           draws)
+        weights = None
+    else:
+        rollout, boot, weights = collect(net)
+    inputs = {dev: (rollout, boot, weights),
               "cpu": (Transition(**{k: v.cpu() for k, v in
-                                    vars(rollout).items()}), boot.cpu())}
+                                    vars(rollout).items()}), boot.cpu(),
+                      None if weights is None else weights.cpu())}
     start = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
 
-    replay = board_size != 8
+    replay = board_size != 8 or collect is not None
     flips = []
 
     def update(device, cfg, word_seed=SEED + 1, masks=None):
@@ -1760,8 +1845,9 @@ def _train_reference_phase(torch, dev, board_size=8,
         n.load_state_dict(start)
         with (_relu_masks(torch, masks, device != "cpu", flips)
               if masks is not None else contextlib.nullcontext()):
-            m = ppo_update(n, make_optimizer(cfg, n.parameters()),
-                           *inputs[device], words, cfg)
+            rollout, boot, weights = inputs[device]
+            m = ppo_update(n, make_optimizer(cfg, n.parameters()), rollout,
+                           boot, words, cfg, weights=weights)
         return ({k: v.cpu() - start[k] for k, v in n.state_dict().items()},
                 {k: float(v) for k, v in m.items()})
 
@@ -1779,7 +1865,7 @@ def _train_reference_phase(torch, dev, board_size=8,
     require(err1 <= REF_ONE_STEP_ATOL,
             f"one step: card vs CPU param deltas differ by {err1:.3e} > "
             f"{REF_ONE_STEP_ATOL}")
-    if replay:
+    if replay and record_free:
         # The same step without the replay, for the record (not gated).
         (d_free, _), (d_free_cpu, _) = update(dev, one), update("cpu", one)
         free = max(float((d_free[k] - d_free_cpu[k]).abs().max())
@@ -1794,7 +1880,7 @@ def _train_reference_phase(torch, dev, board_size=8,
     merr = _check_metrics(m_card, m_cpu)
     rel = _leaf_rel(d_card, d_cpu)
     worst = max(rel, key=rel.get)
-    if replay:
+    if replay and record_free:
         free = max(_leaf_rel(update(dev, cfg)[0],
                              update("cpu", cfg)[0]).values())
         say(f"[{label}] 4 x 4 minibatches without the replay, for the "
@@ -2738,6 +2824,624 @@ def _plane_eval_phase(torch, tb, legal_mask, step, dev):
                     for (b, d), n in same.items())
         + "; no B1 or K2 launch")
     return out
+
+
+@contextlib.contextmanager
+def _count_plies(cls):
+    """Count the calls of ``cls.step_where`` and ``cls.reset_where`` (an
+    engine's plies and resets) while the block runs."""
+    calls = {"step_where": 0, "reset_where": 0}
+    real = {k: getattr(cls, k) for k in calls}
+
+    def counted(name):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return wrapped
+
+    for k in calls:
+        setattr(cls, k, counted(k))
+    try:
+        yield calls
+    finally:
+        for k, fn in real.items():
+            setattr(cls, k, fn)
+
+
+@contextlib.contextmanager
+def _replay_argmax(torch, taken, record, flips):
+    """As ``_relu_masks`` for ``torch.argmax``: record each call's result
+    (``record``) or return the recorded one, adding to ``flips`` the rows
+    where this device's own argmax differs."""
+    real, replayed = torch.argmax, iter(taken)
+
+    def argmax(x, *args, **kwargs):
+        got = real(x, *args, **kwargs)
+        if record:
+            taken.append(got)
+            return got
+        want = next(replayed).to(got.device)
+        flips.append(int((want != got).sum()))
+        return want
+
+    torch.argmax = argmax
+    try:
+        yield
+    finally:
+        torch.argmax = real
+
+
+def _plane_lookahead_phase(torch, tb, step, dev):
+    """The value-lookahead search on planes: on a seeded wide2 net at B = 6
+    and 10, decisions at depth 1 (PLA_GAMES reachable states), depth 2 and
+    beam-3 (k PLA_BEAM) on fewer, and the recurrent depth 1 (a seeded
+    rec_wide2 net, random hidden states), card against CPU where the
+    margin exceeds LOOKAHEAD_MARGIN; ms a decision for PLA_GAMES games at
+    each depth with the device's share; no B1 launch off 8x8.  On 8x8
+    planes (the force_plane layout) the search decides as the bitboard
+    one, one B1 launch a level.  Then ppo_self_play --board-size 6
+    --lookahead-collect --lookahead-mix 0.25 at wide2, N PLA_ENVS, T
+    PLA_STEPS, PLA_UPDATES updates (the override fires at the 4th)."""
+    from gymothelloenv_tpu_torch.cli import ppo_self_play
+    from gymothelloenv_tpu_torch.core.engine import PlaneEngine
+    from gymothelloenv_tpu_torch.core.state import (EnvConfig, OthelloState,
+                                                    index_games)
+    from gymothelloenv_tpu_torch.train import ppo_trainer
+    from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
+    say(f"[plane_lookahead] start: wide2 seeded net at B = {PLA_SIZES}: "
+        f"card vs CPU at depth 1 on {PLA_GAMES} states, depth 2 on "
+        f"{PLA_CMP[2]}, beam-3 (k {PLA_BEAM}) on {PLA_CMP[3]}, the "
+        f"recurrent depth 1 (rec_wide2) on {PLA_GAMES}; ms a decision for "
+        f"{PLA_GAMES} games; 8x8 planes vs bitboard; then ppo_self_play "
+        f"--board-size 6 --lookahead-collect --lookahead-mix {LA_MIX} at "
+        f"N {PLA_ENVS}, T {PLA_STEPS}, {PLA_UPDATES} updates")
+    eng = PlaneEngine()
+    report, timing = {}, {}
+
+    def cpu(state):
+        return OthelloState(**{k: v.cpu() for k, v in vars(state).items()})
+
+    # Main path: B1's count starts at 0 here (no launch off 8x8).
+    step.bit_step.launches = 0
+    with _no_plain(tb) as plain_calls:
+        for b in PLA_SIZES:
+            cfg = EnvConfig(board_size=b, num_disk_as_reward=True)
+            gen = torch.Generator(dev).manual_seed(SEED + 60 + b)
+            state = _plane_states(torch, eng, cfg, PLA_GAMES, dev, gen,
+                                  b * b // 2)
+            net = make_network(cfg, HIDDEN, WIDTH_MULT, SEED, dev).eval()
+            cpu_net = copy.deepcopy(net).cpu()
+            for depth in (1, 2, 3):
+                sub = index_games(state, slice(0, PLA_CMP[depth]))
+                got = ppo_trainer.lookahead_search(net, sub, cfg, depth,
+                                                   PLA_BEAM)
+                want = ppo_trainer.lookahead_search(cpu_net, cpu(sub), cfg,
+                                                    depth, PLA_BEAM)
+                report[(b, depth)] = _compare_search(
+                    torch, got, want, f"B={b} depth {depth}")
+                act = ppo_trainer.net_lookahead_policy(net, cfg, depth,
+                                                       PLA_BEAM)
+                ms = []
+                for _ in range(PLA_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    act(state)
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+                device_s = _device_seconds(torch, lambda: act(state))
+                med = statistics.median(ms)
+                timing[f"B{b}_depth{depth}_ms"] = med
+                timing[f"B{b}_depth{depth}_host_share"] = (
+                    None if device_s is None else 1.0 - 1e3 * device_s / med)
+            rnet = make_network(cfg, REC_HIDDEN, REC_WIDTH, SEED, dev,
+                                recurrent=True).eval()
+            h = torch.randn(PLA_GAMES, REC_HIDDEN, generator=gen,
+                            device=dev).clamp(-1, 1)
+            a, scores, _, h_cur = ppo_trainer.lookahead_recurrent(
+                rnet, state, h, cfg)
+            a_w, scores_w, margin, h_w = ppo_trainer.lookahead_recurrent(
+                copy.deepcopy(rnet).cpu(), cpu(state), h.cpu(), cfg)
+            report[(b, "recurrent")] = _compare_search(
+                torch, (a, scores), (a_w, scores_w, margin),
+                f"B={b} recurrent depth 1")
+            herr = float((h_cur.cpu() - h_w).abs().max())
+            require(herr <= LOOKAHEAD_ATOL, f"B={b} recurrent: the carried "
+                    f"state differs by {herr:.2e}")
+        torch.cuda.synchronize()
+    require(step.bit_step.launches == 0, "B1 ran on a board other than 8x8")
+    require(not plain_calls, f"[plane_lookahead] ran a plain ply on the "
+            f"card: {plain_calls[:3]}")
+
+    # 8x8 planes: decisions equal to the bitboard search's, one B1 a level.
+    cfg8 = EnvConfig(num_disk_as_reward=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 68)
+    planes = _plane_states(torch, eng, EnvConfig(), PLA_GAMES, dev, gen, 40)
+    bits = tb.from_planes(planes.board, planes.turn, planes.legal,
+                          planes.terminated, planes.winner)
+    net8 = make_network(cfg8, HIDDEN, WIDTH_MULT, SEED, dev).eval()
+    forced = {}
+    step.bit_step.launches = 0
+    with _no_plain(tb) as plain_calls:
+        for depth in (1, 2, 3):
+            before = step.bit_step.launches
+            got = ppo_trainer.lookahead_search(net8, planes, cfg8, depth,
+                                               PLA_BEAM)[0]
+            forced[depth] = step.bit_step.launches - before
+            want = ppo_trainer.lookahead_search(net8, bits, cfg8, depth,
+                                                PLA_BEAM)[0]
+            require(torch.equal(got, want), f"8x8 planes depth {depth}: "
+                    "decisions differ from the bitboard search's")
+        torch.cuda.synchronize()
+    require(not plain_calls, "the 8x8 plane search ran a plain ply")
+    require(forced == {1: 1, 2: 2, 3: 3}, f"8x8 planes: B1 launches a "
+            f"decision {forced}, expected one a level")
+    forced_launches = step.bit_step.launches
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory() as tmp:
+        step.bit_step.launches = 0
+        t0 = time.perf_counter()
+        ppo_self_play.main([
+            "--board-size", "6", "--lookahead-collect", "--lookahead-mix",
+            str(LA_MIX), "--width-mult", str(WIDTH_MULT), "--hidden-size",
+            str(HIDDEN), "--num-envs", str(PLA_ENVS), "--num-steps",
+            str(PLA_STEPS), "--num-updates", str(PLA_UPDATES), "--lr",
+            str(TRAIN_LR), "--entropy-coef", str(TRAIN_ENTROPY),
+            "--log-every", "1", "--test-interval", str(10 ** 9),
+            "--num-test-games", str(TRAIN_TEST_GAMES), "--seed", str(SEED),
+            "--log-dir", tmp, "--device", DEVICE_TYPE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+    require(step.bit_step.launches == 0, "B1 ran in board-6 training")
+    require([m["lookahead"] for m in records] == [0.0, 0.0, 0.0, 1.0],
+            f"the override's updates: {[m['lookahead'] for m in records]}")
+    for m in records:
+        for key in ("value_loss", "action_loss", "entropy"):
+            require(math.isfinite(m[key]), f"[plane_lookahead] {key} is not "
+                    f"finite: {m[key]}")
+    train = {k: [m[k] for m in records] for k in (
+        "collect_seconds", "update_seconds", "transitions_per_sec")}
+    say("[plane_lookahead] card vs CPU (states, held by the margin, exactly "
+        "equal, largest value error): " + "; ".join(
+            f"B={b} {d if d == 'recurrent' else f'depth {d}'} "
+            f"{v[0]}/{v[1]}/{v[2]}/{v[3]:.2e}"
+            for (b, d), v in report.items()))
+    say("[plane_lookahead] ms a decision for "
+        f"{PLA_GAMES} games (host share): " + ", ".join(
+            f"B={b} depth {d} {timing[f'B{b}_depth{d}_ms']:.2f}"
+            + ("" if timing[f"B{b}_depth{d}_host_share"] is None else
+               f" ({100 * timing[f'B{b}_depth{d}_host_share']:.1f}%)")
+            for b in PLA_SIZES for d in (1, 2, 3)))
+    say(f"[plane_lookahead] ok: no B1 off 8x8, no plain ply; 8x8 planes = "
+        f"bitboard, B1 launches a decision {forced}; board-6 lookahead "
+        f"training {PLA_UPDATES} updates in {wall:.2f} s, collect "
+        + ", ".join(f"{x:.3f}" for x in train["collect_seconds"])
+        + " s (the 4th with the override), update "
+        + ", ".join(f"{x:.3f}" for x in train["update_seconds"]) + " s")
+    return dict(k2_launches=0, bit_step_launches=forced_launches,
+                report={f"{b}-{d}": v for (b, d), v in report.items()},
+                timing=timing, train=train, wall_seconds=wall)
+
+
+def _teacher_student_phase(torch, tb, legal_mask, step, dev):
+    """cli.teacher_vs_student at JAX job 52's width (wide2, N TS_ENVS, T
+    TS_STEPS, lr 2.5e-4, entropy 0.01, seed 5), the teacher warm-started
+    from TS_TEACHER, TS_CHUNKS chunks and the final 400-game student
+    evaluation, from both TF32 flags on: finite losses for both roles,
+    records of weight 1 in both streams, one B1 launch for every ply of
+    BitEngine (collection and evaluation) and a B1 reset_where for each
+    reset, no plain ply, no K2; then a save/load round trip, and one
+    student update card vs CPU on a collected stream (N TS_REF_ENVS, T
+    TS_REF_STEPS, the CPU replaying the card's ReLU masks)."""
+    from gymothelloenv_tpu_torch.cli import teacher_vs_student
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train import teacher_student as ts
+    from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
+    from gymothelloenv_tpu_torch.train.self_play import Draws
+    teacher = os.path.join(HERE, TS_TEACHER)
+    require(os.path.exists(teacher), f"{TS_TEACHER} is missing")
+    say(f"[teacher_student] start: teacher_vs_student --width-mult "
+        f"{WIDTH_MULT} --hidden-size {HIDDEN} --num-envs {TS_ENVS} "
+        f"--num-steps {TS_STEPS} --teacher-load {TS_TEACHER} --num-chunks "
+        f"{TS_CHUNKS}; student update card vs CPU at N {TS_REF_ENVS}, T "
+        f"{TS_REF_STEPS}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    argv = ["--num-envs", str(TS_ENVS), "--num-steps", str(TS_STEPS),
+            "--lr", str(TRAIN_LR), "--entropy-coef", str(TRAIN_ENTROPY),
+            "--width-mult", str(WIDTH_MULT), "--hidden-size", str(HIDDEN),
+            "--test-interval", str(10 ** 9), "--teacher-test-interval",
+            str(10 ** 9), "--num-test-games", str(TRAIN_TEST_GAMES),
+            "--seed", "5", "--log-every", "1", "--device", DEVICE_TYPE]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ts")
+        # Main path: the counts of K2 and the ply kernel start at 0 here.
+        legal_mask.launches = 0
+        step.bit_step.launches = 0
+        step.reset_where.launches = 0
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
+            trainer = teacher_vs_student.main(argv + [
+                "--teacher-load", teacher, "--num-chunks", str(TS_CHUNKS),
+                "--checkpoint", ckpt, "--log-dir", tmp])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(k2_launches=legal_mask.launches,
+                      bit_step_launches=step.bit_step.launches,
+                      reset_launches=step.reset_where.launches)
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        fresh = ts.TeacherStudentTrainer(trainer.env_cfg, trainer.ppo_cfg,
+                                         trainer.run_cfg, device=dev)
+        fresh.load(ckpt)
+        fresh.save(ckpt + "2")
+        for role in (".teacher", ".student"):
+            with open(ckpt + role, "rb") as a, open(ckpt + "2" + role,
+                                                    "rb") as b:
+                require(a.read() == b.read(), f"[teacher_student] {role} "
+                        "written again differs")
+        for a, b in ((trainer.net_t, fresh.net_t),
+                     (trainer.net_s, fresh.net_s)):
+            require(all(torch.equal(x, y) for x, y in
+                        zip(a.parameters(), b.parameters())),
+                    "[teacher_student] loaded params differ")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    require(flags == (False, False), f"[teacher_student] TF32 on: {flags}")
+    chunks = [m for m in records if "student_value_loss" in m]
+    require(len(chunks) == TS_CHUNKS, "the trainer skipped a chunk")
+    for m in chunks:
+        for key in ("value_loss", "action_loss", "entropy"):
+            for role in ("teacher", "student"):
+                require(math.isfinite(m[f"{role}_{key}"]),
+                        f"[teacher_student] {role}_{key} is not finite")
+        require(m["teacher_records"] > 0 and m["student_records"] > 0,
+                "[teacher_student] a stream has no record of weight 1")
+    require(counts["bit_step_launches"] == calls["step_where"]
+            >= 4 * TS_STEPS * TS_CHUNKS, f"[teacher_student] B1 launches "
+            f"{counts['bit_step_launches']} for {calls['step_where']} plies")
+    require(counts["reset_launches"] == calls["reset_where"]
+            == TS_STEPS * TS_CHUNKS, "[teacher_student] resets: "
+            f"{counts['reset_launches']} launches, {calls['reset_where']} "
+            "calls")
+    _require_no_k2(counts["k2_launches"], "teacher_student")
+    require(not plain_calls, f"[teacher_student] ran a plain ply: "
+            f"{plain_calls[:3]}")
+
+    def collect(net):
+        cfg = EnvConfig(num_disk_as_reward=True)
+        draws = Draws(torch.Generator(dev).manual_seed(SEED + 3))
+        teacher_net = make_network(cfg, HIDDEN, WIDTH_MULT, SEED + 2,
+                                   dev).eval()
+        state = ts.ts_init(cfg, TS_REF_ENVS, 0, draws, device=dev)
+        _, _, (roll, w, boot) = ts.collect_ts_rollout(
+            teacher_net, net, state, cfg, TS_REF_STEPS, 0, 0.0, draws)
+        require(0 < float(w.sum()) < w.numel(), "[teacher_student] the "
+                "reference stream has no bubbles or no records")
+        return roll, boot, w
+
+    out = dict(counts, wall_seconds=wall, plies=calls["step_where"],
+               **{k: [m[k] for m in chunks] for k in (
+                   "collect_seconds", "update_seconds",
+                   "student_episode_return", "episodes")})
+    say(f"[teacher_student] {TS_CHUNKS} chunks and the final evaluation in "
+        f"{wall:.2f} s: collect " + ", ".join(
+            f"{x:.3f}" for x in out["collect_seconds"]) + " s, update "
+        + ", ".join(f"{x:.3f}" for x in out["update_seconds"])
+        + f" s a chunk; {calls['step_where']} plies, "
+        f"{counts['bit_step_launches']} B1 launches, "
+        f"{counts['reset_launches']} reset_where; no K2, no plain ply; "
+        "save/load byte for byte")
+    out["reference"] = _train_reference_phase(
+        torch, dev, 8, "teacher_student", collect=collect,
+        shape=f"N={TS_REF_ENVS}, T={TS_REF_STEPS} slots (4T student rows)",
+        record_free=False)
+    ref = out["reference"]
+    say(f"[teacher_student] ok: the student's update card vs CPU, one step "
+        f"{ref['one_step']:.2e}, 4 x 4 per leaf {ref['per_leaf']:.2e}")
+    return out
+
+
+def _dqn_phase(torch, tb, legal_mask, step, dev):
+    """cli.dqn_train at JAX job 60's configuration (N DQN_ENVS, DQN_PLIES
+    plies a chunk, batch DQN_BATCH, train interval DQN_INTERVAL, PER,
+    double, dueling, n-step 3, a 1M replay, no warm-up, seed 4), DQN_CHUNKS
+    chunks and the final 400-game evaluation: seconds a chunk, updates/s
+    and transitions/s; one B1 launch a BitEngine ply and a reset_where a
+    collector ply, no plain ply, no K2; a checkpoint round trip.  Card vs
+    CPU: the PER sampler on the 1M ring with power-of-two priorities, and
+    one update (dqn_train_batch's steps on the rows the card samples) on
+    the trained replay, its RMSprop step per leaf, with faults planted on
+    the card (``_dqn_update_reference``).  Then one chunk's collection
+    against --opponent
+    greedy (its updates are the self-play chunk's), with the kernels of a
+    collector ply and of one greedy decision (torch.profiler)."""
+    from gymothelloenv_tpu_torch.agents import dqn as dqn_mod
+    from gymothelloenv_tpu_torch.agents import replay as rp
+    from gymothelloenv_tpu_torch.cli import dqn_train
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    from gymothelloenv_tpu_torch.train.dqn_trainer import DQNTrainer
+    say(f"[dqn] start: dqn_train --num-envs {DQN_ENVS} --chunk-plies "
+        f"{DQN_PLIES} --batch-size {DQN_BATCH} --train-interval "
+        f"{DQN_INTERVAL} --prioritized 1 --double 1 --dueling 1 --n-step 3 "
+        f"--replay-size {DQN_REPLAY} --initial-replay-size 0 --num-chunks "
+        f"{DQN_CHUNKS}; PER sampler and one update card vs CPU; one chunk "
+        "against greedy")
+    argv = ["--num-envs", str(DQN_ENVS), "--chunk-plies", str(DQN_PLIES),
+            "--batch-size", str(DQN_BATCH), "--train-interval",
+            str(DQN_INTERVAL), "--prioritized", "1", "--double", "1",
+            "--dueling", "1", "--n-step", "3", "--initial-replay-size", "0",
+            "--replay-size", str(DQN_REPLAY), "--test-interval",
+            str(10 ** 9), "--num-test-games", str(TRAIN_TEST_GAMES),
+            "--log-every", "1", "--seed", "4", "--device", DEVICE_TYPE]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "dqn.msgpack")
+        legal_mask.launches = 0
+        step.bit_step.launches = 0
+        step.reset_where.launches = 0
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
+            trainer = dqn_train.main(argv + [
+                "--num-chunks", str(DQN_CHUNKS), "--checkpoint", ckpt,
+                "--log-dir", tmp])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(k2_launches=legal_mask.launches,
+                      bit_step_launches=step.bit_step.launches,
+                      reset_launches=step.reset_where.launches)
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        fresh = DQNTrainer(trainer.env_cfg, trainer.dqn_cfg, trainer.rb_cfg,
+                           trainer.run_cfg, device=dev)
+        fresh.load(ckpt)
+        fresh.save(ckpt + "2")
+        with open(ckpt, "rb") as a, open(ckpt + "2", "rb") as b:
+            require(a.read() == b.read(), "[dqn] the checkpoint written "
+                    "again differs")
+        require(fresh.agent.t == trainer.agent.t and all(
+            torch.equal(x, y) for x, y in zip(
+                trainer.agent.net.parameters(),
+                fresh.agent.net.parameters())), "[dqn] load differs")
+    chunks = [m for m in records if "loss" in m]
+    require(len(chunks) == DQN_CHUNKS, "[dqn] the trainer skipped a chunk")
+    require(all(math.isfinite(m["loss"]) and m["updates"] > 0
+                for m in chunks), "[dqn] no update or a loss not finite")
+    require(counts["bit_step_launches"] == calls["step_where"]
+            >= DQN_PLIES * DQN_CHUNKS, f"[dqn] B1 launches "
+            f"{counts['bit_step_launches']} for {calls['step_where']} plies")
+    require(counts["reset_launches"] == calls["reset_where"]
+            == DQN_PLIES * DQN_CHUNKS, "[dqn] resets: "
+            f"{counts['reset_launches']} launches, {calls['reset_where']} "
+            "calls")
+    _require_no_k2(counts["k2_launches"], "dqn")
+    require(not plain_calls, f"[dqn] ran a plain ply: {plain_calls[:3]}")
+    prev, readings = 0, []
+    for m in chunks:
+        new = m["transitions"] - prev
+        prev = m["transitions"]
+        readings.append(dict(
+            collect_seconds=m["collect_seconds"],
+            update_seconds=m["update_seconds"], updates=m["updates"],
+            updates_per_sec=m["updates"] / m["update_seconds"],
+            transitions_per_sec=new / (m["collect_seconds"]
+                                       + m["update_seconds"])))
+
+    # Card vs CPU: the PER sampler on the 1M ring, power-of-two
+    # priorities (exact prefix sums on both).  A first draft drew them
+    # from 2^-4 to 2^4, whose sums over the ring need 26 bits: the card's
+    # and the CPU's block prefix sums rounded apart and indices differed.
+    cfg = rp.ReplayConfig(capacity=DQN_REPLAY, prioritized=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 9)
+    rb = rp.replay_init(cfg, dev)
+    # Powers of two from 1 to 8: every prefix sum over the 1M ring is an
+    # integer below 2^24, exact in float32 in any order of summation.
+    rb.priority = 2.0 ** torch.randint(0, 4, (DQN_REPLAY + 1,),
+                                       generator=gen, device=dev).float()
+    rb.size = torch.tensor(DQN_REPLAY - 12_345, device=dev)
+    u = torch.rand(DQN_BATCH, generator=gen, device=dev)
+    idx = rp.replay_sample_idx(rb, cfg, u)
+    rb_cpu = rp.replay_init(rp.ReplayConfig(capacity=DQN_REPLAY,
+                                            prioritized=True), "cpu")
+    rb_cpu.priority, rb_cpu.size = rb.priority.cpu(), rb.size.cpu()
+    require(torch.equal(idx.cpu(), rp.replay_sample_idx(rb_cpu, cfg,
+                                                        u.cpu())),
+            "[dqn] the PER sampler's indices differ on the card")
+    require(int(idx.max()) < DQN_REPLAY - 12_345, "[dqn] PER drew an "
+            "unfilled row")
+
+    # Card vs CPU: one update (dqn_train_batch's steps) on the trained
+    # replay.  Both take the rows the card samples: the trained
+    # priorities are not exact in float32, so the card's and the CPU's
+    # prefix sums over the 1M ring round apart and a few samples land on
+    # neighbouring rows (counted, not gated; the sampler is held exactly
+    # above on exact priorities).
+    ref = _dqn_update_reference(torch, trainer, dqn_mod, rp, gen, dev)
+
+    # One chunk against greedy; the kernels of a collector ply and of one
+    # greedy decision.
+    g = DQNTrainer(trainer.env_cfg, trainer.dqn_cfg, trainer.rb_cfg,
+                   dataclasses.replace(trainer.run_cfg, opponent="greedy"),
+                   device=dev)
+    legal_mask.launches = 0
+    step.bit_step.launches = 0
+    step.reset_where.launches = 0
+    with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as gcalls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.collect_chunk()
+        torch.cuda.synchronize()
+        greedy_collect = time.perf_counter() - t0
+    require(step.bit_step.launches == gcalls["step_where"] == DQN_PLIES,
+            f"[dqn] greedy chunk: {step.bit_step.launches} B1 launches for "
+            f"{gcalls['step_where']} plies")
+    _require_no_k2(legal_mask.launches, "dqn greedy")
+    require(not plain_calls, "[dqn] the greedy chunk ran a plain ply")
+    greedy_b1 = step.bit_step.launches
+    require(step.reset_where.launches == gcalls["reset_where"] == DQN_PLIES,
+            "[dqn] greedy chunk: one reset_where a ply")
+    greedy_resets = step.reset_where.launches
+    eps = g._epsilon(g.agent.t).to(dev)
+    ply_kernels = _cuda_kernels(torch, lambda: g._ply(g.roll, eps, None))
+    greedy_kernels = _cuda_kernels(torch, lambda: g.eng.greedy(g.roll.env))
+    out = dict(counts, bit_step_launches=counts["bit_step_launches"]
+               + greedy_b1,
+               reset_launches=counts["reset_launches"] + greedy_resets,
+               wall_seconds=wall, chunks=readings,
+               plies=calls["step_where"], per_sampler_equal=True,
+               update=ref,
+               greedy=dict(collect_seconds=greedy_collect,
+                           kernels_a_ply=ply_kernels,
+                           greedy_kernels=greedy_kernels))
+    say("[dqn] chunks: " + "; ".join(
+        f"collect {r['collect_seconds']:.3f} s, {r['updates']} updates in "
+        f"{r['update_seconds']:.3f} s ({r['updates_per_sec']:.1f}/s), "
+        f"{r['transitions_per_sec']:.1f} transitions/s" for r in readings))
+    say(f"[dqn] ok: {DQN_CHUNKS} chunks and the final evaluation in "
+        f"{wall:.2f} s; {calls['step_where']} plies, "
+        f"{counts['bit_step_launches']} B1 launches, "
+        f"{counts['reset_launches']} reset_where; PER indices card = CPU on "
+        f"the 1M ring; one update card vs CPU: the step per leaf "
+        f"{ref['step_rel']:.2e} of its largest (rtol {DQN_STEP_RTOL}), "
+        f"every planted fault above it (least "
+        f"{min(ref['planted'].values()):.2e}), loss {ref['loss_rel']:.2e}, "
+        f"priorities {ref['priority_rel']:.2e} (rtol {DQN_REF_RTOL}); "
+        f"checkpoint round trip byte for byte; "
+        f"a chunk's collection against greedy {greedy_collect:.3f} s, "
+        f"{ply_kernels} kernels a collector ply, {greedy_kernels} a greedy "
+        "decision")
+    return out
+
+
+def _rmsprop_planted(torch, opt, eps_outside=False, momentum=None):
+    """``agents.dqn.RMSprop.step`` with a planted fault: eps added outside
+    the root (PyTorch's RMSprop), or another momentum."""
+    m = opt.momentum if momentum is None else momentum
+    with torch.no_grad():
+        for p, nu, tr in zip(opt.params, opt.nu, opt.trace):
+            g = p.grad
+            nu.mul_(opt.decay).add_((1.0 - opt.decay) * (g * g))
+            scale = (1.0 / (nu.sqrt() + opt.eps) if eps_outside
+                     else torch.rsqrt(nu + opt.eps))
+            tr.mul_(m).add_(scale * g * -opt.lr)
+            p.add_(tr)
+
+
+def _dqn_update_reference(torch, trainer, dqn_mod, rp, gen, dev):
+    """One ``dqn_train_batch`` update (its sample, loss, gradients, RMSprop
+    step and priority refresh) of the trained agent on the trained
+    replay, on the card and on the CPU from the same state, the CPU
+    replaying the card's rows, its ReLU masks and its Double-DQN argmax.
+    The step is read from the momentum trace (``trace - momentum *
+    trace_before``, the update the optimizer adds to it), per leaf over
+    the leaf's largest CPU step; each parameter is held to the CPU's
+    within the two traces' difference plus one float32 rounding of the
+    parameter.  Then the card's update with each planted fault
+    (DQN_PLANTS) must read above DQN_STEP_RTOL against the CPU's true
+    one."""
+    agent, cfg, rb_cfg = trainer.agent, trainer.dqn_cfg, trainer.rb_cfg
+    cpu_agent = dqn_mod.dqn_init(cfg, 0, "cpu")
+    cpu_agent.net.load_state_dict(agent.net.state_dict())
+    cpu_agent.target.load_state_dict(agent.target.state_dict())
+    for dst, src in ((cpu_agent.optimizer.nu, agent.optimizer.nu),
+                     (cpu_agent.optimizer.trace, agent.optimizer.trace)):
+        for d, s in zip(dst, src):
+            d.copy_(s.cpu())
+    names = [k for k, _ in agent.net.named_parameters()]
+    params0 = [p.detach().clone() for p in agent.net.parameters()]
+    nu0 = [t.clone() for t in agent.optimizer.nu]
+    trace0 = [t.clone() for t in agent.optimizer.trace]
+    momentum = agent.optimizer.momentum
+    replay = trainer.replay
+    cpu_replay = rp.Replay(**{k: v.cpu() for k, v in vars(replay).items()})
+    card_replay = rp.Replay(**{k: v.clone() for k, v in
+                               vars(replay).items()})
+    u = torch.rand(DQN_BATCH, generator=gen, device=dev)
+    idx = rp.replay_sample_idx(card_replay, rb_cfg, u)
+    resampled = int((rp.replay_sample_idx(cpu_replay, rb_cfg, u.cpu())
+                     != idx.cpu()).sum())
+    argmax, masks, flips, relu_flips = [], [], [], []
+
+    def update(a, r, i, record, plant=None):
+        """The update on ``a``; returns (loss, per-leaf steps, params)."""
+        c = dataclasses.replace(cfg, n_step=1) if plant == "gamma^1" else cfg
+        with _replay_argmax(torch, argmax, record, flips), \
+                _relu_masks(torch, masks, record, relu_flips):
+            loss, td = dqn_mod.dqn_loss_grads(a, c, rp.replay_gather(r, i))
+        before = [t.detach().cpu().clone() for t in a.optimizer.trace]
+        if plant == "eps outside the root":
+            _rmsprop_planted(torch, a.optimizer, eps_outside=True)
+        elif plant == "momentum 0.9":
+            _rmsprop_planted(torch, a.optimizer, momentum=0.9)
+        else:
+            a.optimizer.step()
+        if plant is None:
+            rp.replay_update_priorities(r, rb_cfg, i, td)
+        steps = [t.detach().cpu() - momentum * b
+                 for t, b in zip(a.optimizer.trace, before)]
+        return (float(loss), steps,
+                [p.detach().cpu().clone() for p in a.net.parameters()],
+                [t.detach().cpu().clone() for t in a.optimizer.trace])
+
+    loss, step_card, p_card, tr_card = update(agent, card_replay, idx, True)
+    loss_c, step_cpu, p_cpu, tr_cpu = update(cpu_agent, cpu_replay,
+                                             idx.cpu(), False)
+
+    def step_rel(steps):
+        out = {}
+        for k, s, w in zip(names, steps, step_cpu):
+            big = float(w.abs().max())
+            require(big > 0, f"[dqn] the reference update did not move {k}")
+            out[k] = float((s - w).abs().max()) / big
+        return out
+    rel = step_rel(step_card)
+    worst = max(rel, key=rel.get)
+    sizes = {k: float(w.abs().max()) for k, w in zip(names, step_cpu)}
+    param_excess = max(float(((a - b).abs() - (ta - tb).abs()
+                              - 2.0 ** -22 * b.abs()).max())
+                       for a, b, ta, tb in zip(p_card, p_cpu, tr_card,
+                                               tr_cpu))
+    lerr = abs(loss - loss_c) / max(abs(loss_c), 1e-12)
+    perr = float(((card_replay.priority.cpu() - cpu_replay.priority).abs()
+                  / cpu_replay.priority.clamp(min=1e-12)).max())
+    planted = {}
+    for plant in DQN_PLANTS:
+        with torch.no_grad():
+            for p, p0 in zip(agent.net.parameters(), params0):
+                p.copy_(p0)
+            for dst, src in ((agent.optimizer.nu, nu0),
+                             (agent.optimizer.trace, trace0)):
+                for d, s0 in zip(dst, src):
+                    d.copy_(s0)
+        planted[plant] = max(step_rel(update(agent, card_replay, idx, False,
+                                             plant)[1]).values())
+    say(f"[dqn] one update: the CPU's step |u| per leaf from "
+        f"{min(sizes.values()):.3e} to {max(sizes.values()):.3e} "
+        f"(read from the momentum trace); card vs "
+        f"CPU per leaf {rel[worst]:.3e} ({worst}); planted faults on the "
+        "card: " + ", ".join(f"{k} {v:.3e}" for k, v in planted.items())
+        + f"; {sum(flips)} of {DQN_BATCH} next actions and "
+        f"{sum(relu_flips)} ReLU units the CPU's own arithmetic would "
+        f"change; {resampled} of the CPU's own samples land elsewhere")
+    require(rel[worst] <= DQN_STEP_RTOL, f"[dqn] one update: the step of "
+            f"{worst} differs by {rel[worst]:.3e} of its largest > "
+            f"{DQN_STEP_RTOL}")
+    require(param_excess <= 0, f"[dqn] one update: a parameter differs by "
+            f"{param_excess:.3e} more than its step and one rounding")
+    for plant, reading in planted.items():
+        require(reading > DQN_STEP_RTOL, f"[dqn] the planted fault "
+                f"'{plant}' reads {reading:.3e}, inside {DQN_STEP_RTOL}")
+    require(lerr <= DQN_REF_RTOL and perr <= DQN_REF_RTOL, f"[dqn] one "
+            f"update: loss {lerr:.3e}, priorities {perr:.3e} (rtol "
+            f"{DQN_REF_RTOL})")
+    return dict(step_rel=rel[worst], worst_leaf=worst,
+                step_size_max=max(sizes.values()),
+                step_size_min=min(sizes.values()), planted=planted,
+                loss_rel=lerr, priority_rel=perr, argmax_flips=sum(flips),
+                relu_flips=sum(relu_flips), resampled=resampled)
 
 
 def _index_policies(torch, tb):

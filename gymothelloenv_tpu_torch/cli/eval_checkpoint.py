@@ -16,7 +16,7 @@ half the card's free memory, each segment's states starting at zero, so
 the segments change no game.  The search scores children on the
 training reward scale (disk differences) while the games keep the
 default rules.  ``--board-size`` picks the board (the checkpoint must be
-for it); the search is 8x8 only.  Games run on ``--device`` (default
+for it), the search's too.  Games run on ``--device`` (default
 ``cuda``).
 
 Usage:

@@ -2,8 +2,8 @@
 mirror or opponent-pool self-play, checkpoints, chained updates, random
 openings, lookahead collection and distillation, recurrent (GRU),
 frame-stacked and time-limited PPO and ``--bf16``, on any
-``--board-size`` (8 on the bitboard engine, other sizes on planes; the
-lookahead flags are 8x8 only), plus ``--device``.  The net
+``--board-size`` (8 on the bitboard engine, other sizes on planes, the
+lookahead flags too), plus ``--device``.  The net
 computes in float32 with TF32 off (``utils.device.use_float32``), or with
 ``--bf16`` in bfloat16 with float32 parameters and TF32 still off for the
 float32 parts; the first printed line says which.  Checkpoints are the

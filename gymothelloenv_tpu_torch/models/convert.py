@@ -1,11 +1,14 @@
-"""Carry ``PolicyNet`` weights between flax's param tree and the port.
+"""Carry ``PolicyNet`` (and ``DQNNet``/``DuelingDQNNet``) weights between
+flax's param tree and the port.
 
 The flax tree has numpy leaves (``ConvTrunk_0/Conv_{0,1,2}``, ``Dense_0``
 fc, ``Dense_1`` value, ``Dense_2`` logits, and for a recurrent net
 ``GRUCore_0/GRUCell_0/{ir,iz,in,hr,hz,hn}``), with or without the outer
 ``{"params": ...}`` level.  Conv kernels are HWIO in flax and OIHW here;
 Dense kernels are ``(in, out)`` in flax and ``(out, in)`` here; the
-trunk's NHWC flatten keeps the fc weights in JAX's row order.  The same
+trunk's NHWC flatten keeps the fc weights in JAX's row order.  The DQN
+nets name their flax modules in ``FLAX_MODULES`` (``Dense_0..1``, or the
+dueling ``Dense_0..3``).  The same
 mapping carries any per-parameter tensor, such as Adam's moments
 (``agents/ppo.Optimizer``).
 """
@@ -31,10 +34,13 @@ _MODULES = {"trunk.conv0": ("ConvTrunk_0", "Conv_0"),
 _LEAVES = {"weight": "kernel", "bias": "bias"}
 
 
-def _flax_path(name: str) -> tuple:
-    """A ``PolicyNet`` parameter name -> its path in the flax tree."""
+def _flax_path(name: str, net=None) -> tuple:
+    """A parameter name of ``net`` -> its path in the flax tree: a
+    ``PolicyNet``'s, or the ``FLAX_MODULES`` of a net that has them (the
+    DQN nets)."""
+    modules = getattr(net, "FLAX_MODULES", _MODULES)
     module, leaf = name.rsplit(".", 1)
-    return _MODULES[module] + (_LEAVES[leaf],)
+    return modules[module] + (_LEAVES[leaf],)
 
 
 def _to_flax_layout(t: torch.Tensor) -> np.ndarray:
@@ -71,7 +77,7 @@ def flax_tree(net: PolicyNet, tensors=None) -> dict:
         tensors = list(net.parameters())
     tree: dict = {}
     for name, t in zip(names, tensors, strict=True):
-        *outer, leaf = _flax_path(name)
+        *outer, leaf = _flax_path(name, net)
         node = tree
         for key in outer:
             node = node.setdefault(key, {})
@@ -86,7 +92,7 @@ def tensors_from_flax(net: PolicyNet, tree) -> list:
     p = tree.get("params", tree) if isinstance(tree, dict) else tree
     out, seen = [], set()
     for name, param in net.named_parameters():
-        path = _flax_path(name)
+        path = _flax_path(name, net)
         node = p
         for key in path:
             if not isinstance(node, dict) or key not in node:
@@ -97,9 +103,11 @@ def tensors_from_flax(net: PolicyNet, tree) -> list:
     extra = ["/".join(path) for path, _ in flax_leaves(p)
              if path not in seen]
     if extra:
-        kind = "recurrent" if net.recurrent else "feed-forward"
-        raise ValueError(f"flax tree leaves the {kind} PolicyNet does "
-                         f"not have: {extra[:3]}")
+        kind = (type(net).__name__ if not isinstance(net, PolicyNet) else
+                "recurrent PolicyNet" if net.recurrent else
+                "feed-forward PolicyNet")
+        raise ValueError(f"flax tree leaves the {kind} does not have: "
+                         f"{extra[:3]}")
     return out
 
 

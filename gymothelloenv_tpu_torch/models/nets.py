@@ -1,8 +1,9 @@
 """``PolicyNet`` with the ``conv`` trunk, feed-forward or with a GRU core,
-and the frame-stack cell — the port of ``models/nets.py`` (``ConvTrunk``
-impl="conv", ``GRUCore``, ``PolicyNet``; the vendored masked ``Policy`` +
-``CNNBase``, model.py:19-98, :201-314) and of ``train/ppo_trainer.py::
-make_apply_fn_framestack``.
+the frame-stack cell, and the DQN Q-networks — the port of
+``models/nets.py`` (``ConvTrunk`` impl="conv", ``GRUCore``, ``PolicyNet``,
+``DQNNet``, ``DuelingDQNNet``; the vendored masked ``Policy`` +
+``CNNBase``, model.py:19-98, :201-314; dqn.py:73-127) and of
+``train/ppo_trainer.py::make_apply_fn_framestack``.
 
 Input is NCHW ``(N, 4K, B, B)`` float32 as in JAX (K > 1 with frame
 stacking).  The JAX trunk runs in NHWC and flattens its ``(s, s, C)``
@@ -203,6 +204,68 @@ class FrameStackCell(nn.Module):
         x = torch.cat([prev, obs.to(prev.dtype)], dim=1)
         logits, value = self.net(x)
         return logits, value, x[:, 4:].reshape(n, self.hidden_size)
+
+
+class DQNNet(nn.Module):
+    """Q-network (dqn.py:73-95; JAX ``DQNNet``): the trunk over 3 input
+    planes (``agents.dqn.featurize3``) -> fc 128 + ReLU -> fc ``A``.
+    ``FLAX_MODULES`` names each layer's flax module
+    (``models/convert.py``)."""
+
+    FLAX_MODULES = {"trunk.conv0": ("ConvTrunk_0", "Conv_0"),
+                    "trunk.conv1": ("ConvTrunk_0", "Conv_1"),
+                    "trunk.conv2": ("ConvTrunk_0", "Conv_2"),
+                    "fc": ("Dense_0",), "out": ("Dense_1",)}
+
+    def __init__(self, num_actions: int = 64, board_size: int = 8):
+        super().__init__()
+        self.board_size = board_size
+        self.trunk = ConvTrunk(in_channels=3)
+        side = trunk_side(board_size)
+        self.fc = nn.Linear(64 * side * side, 128)
+        self.out = nn.Linear(128, num_actions)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        """torch's default kernel init (kaiming-uniform, ``a = sqrt(5)``;
+        JAX's ``torch_default_init``) and zero biases, as flax's."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                         generator=generator)
+                nn.init.zeros_(m.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """float32 (N, 3, B, B) -> Q values (N, A)."""
+        return self.out(torch.relu(self.fc(self.trunk(x))))
+
+
+class DuelingDQNNet(DQNNet):
+    """Dueling Q-network (dqn.py:97-127; JAX ``DuelingDQNNet``): advantage
+    and value branches of 128 each, ``Q = V + A - mean(A)``.  flax makes
+    ``Dense_0`` (advantage 128), ``Dense_1`` (value 128), ``Dense_2``
+    (advantage -> A) and ``Dense_3`` (value -> 1), in that order."""
+
+    FLAX_MODULES = {"trunk.conv0": ("ConvTrunk_0", "Conv_0"),
+                    "trunk.conv1": ("ConvTrunk_0", "Conv_1"),
+                    "trunk.conv2": ("ConvTrunk_0", "Conv_2"),
+                    "adv_fc": ("Dense_0",), "val_fc": ("Dense_1",),
+                    "adv": ("Dense_2",), "val": ("Dense_3",)}
+
+    def __init__(self, num_actions: int = 64, board_size: int = 8):
+        nn.Module.__init__(self)
+        self.board_size = board_size
+        self.trunk = ConvTrunk(in_channels=3)
+        side = trunk_side(board_size)
+        self.adv_fc = nn.Linear(64 * side * side, 128)
+        self.val_fc = nn.Linear(64 * side * side, 128)
+        self.adv = nn.Linear(128, num_actions)
+        self.val = nn.Linear(128, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feat = self.trunk(x)
+        adv = self.adv(torch.relu(self.adv_fc(feat)))
+        val = self.val(torch.relu(self.val_fc(feat)))
+        return val + adv - adv.mean(dim=-1, keepdim=True)
 
 
 def params_net(policy: nn.Module) -> PolicyNet:

@@ -25,8 +25,9 @@ child's ``legal`` where its ``turn`` is that side, else none: the ply
 kernel bounces the turn back when that side cannot move, and zeroes
 ``legal`` when the game ends.  A node without moves is scored at once,
 the reference's pass quirk.
-``expand_legal`` and the memory-bounded chunking (``chunked``) also carry
-the value-lookahead search (``train/ppo_trainer.lookahead_search``).
+``expand_legal`` (on words or on planes) and the memory-bounded chunking
+(``chunked``) also carry the value-lookahead search
+(``train/ppo_trainer.lookahead_search``) at any board size.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 
 from gymothelloenv_tpu_torch.core import bitboard as bb
 from gymothelloenv_tpu_torch.core import bitops
+from gymothelloenv_tpu_torch.core import state as core
 from gymothelloenv_tpu_torch.core.engine import engine_of
 from gymothelloenv_tpu_torch.core.state import (EnvConfig, OthelloState,
                                                 disk_planes, index_games)
@@ -82,15 +84,25 @@ def memory_budget(device: torch.device) -> int:
     return _CPU_BUDGET
 
 
-def expand_legal(nodes: bb.BitState, legal: torch.Tensor,
+def expand_legal(nodes, legal: torch.Tensor,
                  cfg: EnvConfig = EnvConfig(), max_pairs: int | None = None):
-    """One tree level: every set bit of ``legal`` (int64 (M,) moves of each
-    node) stepped from its node with the flags of ``cfg``, through the ply
-    kernel (one launch on the card).  Pairs come in node order, moves
-    ascending within a node.  Returns ``(parent, action, child, reward)``:
-    each pair's node index, its move (int64), the stepped state and the
-    mover-perspective terminal reward; or ``None`` when there are more than
-    ``max_pairs`` pairs.  One host read: the number of pairs."""
+    """One tree level: every legal ``(node, move)`` pair stepped from its
+    node with the flags of ``cfg``.  On words (a ``BitState``) ``legal`` is
+    int64 (M,) moves of each node and the pairs go through the ply kernel
+    (one launch on the card); on planes (an ``OthelloState``) ``legal`` is
+    bool (M, B*B) and the pairs go through ``core.state.step`` (at B = 8
+    one launch of the ply kernel, else the plane rules).  Pairs come in
+    node order, moves ascending within a node.  Returns ``(parent, action,
+    child, reward)``: each pair's node index, its move (int64), the
+    stepped state and the mover-perspective terminal reward; or ``None``
+    when there are more than ``max_pairs`` pairs.  One host read: the
+    number of pairs."""
+    if isinstance(nodes, OthelloState):
+        parent, action = legal.nonzero(as_tuple=True)
+        if max_pairs is not None and parent.shape[0] > max_pairs:
+            return None
+        res = core.step(index_games(nodes, parent), action, cfg)
+        return parent, action, res.state, res.reward
     counts = bb.popcount(legal)
     total = int(counts.sum())
     if max_pairs is not None and total > max_pairs:

@@ -4,7 +4,7 @@ search, each held against the JAX package's figure with a two-proportion
 z-test on win% (a draw is a non-win, as JAX counts it).
 
     python -m gymothelloenv_tpu_torch.scripts.ladder [--games 1000]
-        [--seed 0] [--device cuda]
+        [--seed 0] [--device cuda] [--only TEXT]
 
 Each cell is the same as ``python -m gymothelloenv_tpu_torch.cli.
 eval_checkpoint --load <ckpt> --opponent <opp> [<flags>] --games <games>
@@ -13,7 +13,10 @@ seconds, the JAX figure, z and the two-sided p-value, and whether p is at
 or above ``ALPHA``.  Seeded JAX and torch streams never agree, so the check
 is statistical.  On a card it first prints the card's name and power limit
 (nvidia-smi).  Reads five checkpoints under ``data/selfplay/``, two of
-them recurrent (GRU).
+them recurrent (GRU), and the teacher-student student
+``data/ts/ts_wide2_1500.student``.  ``--only TEXT`` runs the cells whose
+checkpoint path holds TEXT (the two teacher-student cells: ``--only ts_
+--games 400 --seed 123``, JAX's protocol for them).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ LAMIX = "data/selfplay/ppo_wide2_lamix25s17_1000.msgpack"
 LA3500 = "data/selfplay/ppo_wide2_la_3500.msgpack"
 REC2000 = "data/selfplay/ppo_recurrent_2000.msgpack"
 REC_WIDE2 = "data/selfplay/ppo_rec_wide2_2500.msgpack"
+TS_STUDENT = "data/ts/ts_wide2_1500.student"
 # (checkpoint, opponent, eval_checkpoint flags, JAX wins, JAX games, where
 # RESULTS.md says so)
 CELLS = ((WIDE2_4K, "maximin-2", (), 291, 400, "RESULTS.md:235"),
@@ -52,7 +56,12 @@ CELLS = ((WIDE2_4K, "maximin-2", (), 291, 400, "RESULTS.md:235"),
          (REC_WIDE2, "maximin-2", (), 271, 400,
           "RESULTS.md:172-174, data/logs/queue/11_recurrent_wide2.log:318"),
          # 28.5% of 400 games (the league table gives the rate only).
-         (LA3500, f"ckpt:{REC2000}", (), 114, 400, "RESULTS.md:674"))
+         (LA3500, f"ckpt:{REC2000}", (), 114, 400, "RESULTS.md:674"),
+         # The teacher-student student (job 59, 400 games, seed 123): 67.7%
+         # of 400 (the rate only), and 322/13/65 against wide2_4k.
+         (TS_STUDENT, "maximin-2", (), 271, 400, "RESULTS.md:988"),
+         (TS_STUDENT, f"ckpt:{WIDE2_4K}", (), 322, 400,
+          "RESULTS.md:987-988, data/logs/queue/64_ts_h2h.log:5"))
 ALPHA = 0.01
 
 
@@ -70,6 +79,9 @@ def main(argv=None) -> list:
     parser.add_argument("--games", type=int, default=1000)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--only", type=str, default="",
+                        help="run only the cells whose checkpoint path "
+                             "contains this text (e.g. ts_wide2)")
     args = parser.parse_args(argv)
     if args.device != "cpu":
         smi = subprocess.run(
@@ -80,6 +92,8 @@ def main(argv=None) -> list:
               flush=True)
     rows = []
     for ckpt, opp, flags, jax_wins, jax_games, where in CELLS:
+        if args.only not in ckpt:
+            continue
         t0 = time.time()
         wins, draws, losses = eval_checkpoint.main([
             "--load", ckpt, "--opponent", opp, *flags, "--games",

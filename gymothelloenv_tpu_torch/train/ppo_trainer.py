@@ -43,13 +43,13 @@ from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, make_optimizer,
                                                 ppo_update_recurrent)
 from gymothelloenv_tpu_torch.core.engine import engine_of, get_engine
 from gymothelloenv_tpu_torch.core.featurize import make_state
-from gymothelloenv_tpu_torch.core.state import EnvConfig, index_games
+from gymothelloenv_tpu_torch.core.state import (EnvConfig, OthelloState,
+                                                index_games)
 from gymothelloenv_tpu_torch.models.convert import (architecture,
                                                     flax_leaves, flax_tree,
                                                     load_flax_params,
                                                     policy_net_from_flax,
                                                     tensors_from_flax)
-from gymothelloenv_tpu_torch.core import bitboard as bb
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
 from gymothelloenv_tpu_torch.models.nets import (FrameStackCell, PolicyNet,
                                                  params_net)
@@ -60,7 +60,7 @@ from gymothelloenv_tpu_torch.policies.scripted import (expand_legal,
                                                        random_policy)
 from gymothelloenv_tpu_torch.train import tournament
 from gymothelloenv_tpu_torch.train.self_play import (
-    LEAF_SLICE, NEG, Draws, check_lookahead_board, collect_rollout,
+    LEAF_SLICE, NEG, Draws, collect_rollout,
     collect_rollout_recurrent, collect_rollout_time_limited,
     make_lookahead_override, node_values, selfplay_init,
     selfplay_init_recurrent)
@@ -204,8 +204,8 @@ def net_sampling_cell(net: torch.nn.Module):
 
 
 @torch.no_grad()
-def lookahead_recurrent(net: torch.nn.Module, states: bb.BitState,
-                        h: torch.Tensor, cfg: EnvConfig):
+def lookahead_recurrent(net: torch.nn.Module, states, h: torch.Tensor,
+                        cfg: EnvConfig):
     """The recurrent depth-1 lookahead on a batch of games (JAX
     ``net_lookahead_cell_recurrent``'s cell).  The state first consumes
     the current observation (``h_cur``); each legal child (one
@@ -213,10 +213,10 @@ def lookahead_recurrent(net: torch.nn.Module, states: bb.BitState,
     ``net`` from ``h_cur`` over the child's observation, a terminal child
     by its true reward, negated where the turn passes.  Returns
     ``(action, scores, margin, h_cur)``: the argmax of the legal values
-    (the first maximum; action 0 without a legal move), the (N, 64)
+    (the first maximum; action 0 without a legal move), the (N, B*B)
     values (``NEG`` where illegal), the best value over the second
-    (``inf`` without a second) and the state to carry.  8x8 only."""
-    check_lookahead_board(cfg)
+    (``inf`` without a second) and the state to carry.  Bit or plane
+    games, as ``expand_legal``."""
     n = h.shape[0]
     ones = torch.ones(n, device=h.device)
     _, _, h_cur = net(make_state(states), h, ones)
@@ -224,7 +224,8 @@ def lookahead_recurrent(net: torch.nn.Module, states: bb.BitState,
     _, v, _ = net(make_state(child), h_cur[parent], ones[parent])
     mover_v = torch.where(child.turn == states.turn[parent], v, -v)
     vals = torch.where(child.terminated, reward, mover_v)
-    scores = torch.full((n, 64), NEG, dtype=vals.dtype, device=h.device)
+    scores = torch.full((n, cfg.num_actions), NEG, dtype=vals.dtype,
+                        device=h.device)
     scores[parent, action] = vals
     top = scores.topk(2, dim=1).values
     margin = torch.where(top[:, 1] > NEG, top[:, 0] - top[:, 1],
@@ -237,15 +238,14 @@ def net_lookahead_cell_recurrent(net: torch.nn.Module, cfg: EnvConfig,
     """``lookahead_recurrent`` as a stateful actor ``cell(states, h,
     draws) -> (actions, h_cur)``: the carried state advances to
     ``h_cur``, never to a child's.  ``cfg`` carries the training reward
-    scale.  Depth 1 only, as in JAX; 8x8 only."""
-    check_lookahead_board(cfg)
+    scale.  Depth 1 only, as in JAX."""
     if depth != 1:
         raise NotImplementedError(
             "recurrent lookahead supports depth 1 only (depth-2 would "
             "thread A^2 speculative hiddens per game)")
     use_float32()
 
-    def cell(states: bb.BitState, h: torch.Tensor, draws=None):
+    def cell(states, h: torch.Tensor, draws=None):
         del draws
         action, _, _, h_cur = lookahead_recurrent(net, states, h, cfg)
         return action, h_cur
@@ -328,20 +328,23 @@ def _board_bytes(net: torch.nn.Module) -> int:
     for a net that is not a ``PolicyNet``."""
     if not isinstance(net, PolicyNet):
         return 1 << 16
-    t = net.trunk
-    floats = (4 * 64 + 16 * t.conv0.out_channels + 9 * t.conv1.out_channels
-              + 4 * t.conv2.out_channels + net.fc.out_features
-              + net.logits.out_features + 1)
+    t, b = net.trunk, net.board_size
+    side = (b + 1) // 2                 # conv0's output side
+    floats = (4 * b * b + side ** 2 * t.conv0.out_channels
+              + max(side - 1, 0) ** 2 * t.conv1.out_channels
+              + max(side - 2, 0) ** 2 * t.conv2.out_channels
+              + net.fc.out_features + net.logits.out_features + 1)
     return 2 * 4 * floats + 4096
 
 
-def _room(budget, kept: int, board: int):
+def _room(budget, kept: int, board: int, node: int):
     """The most pairs a level may expand within ``budget`` bytes when
-    ``kept`` are held: each pair's node bytes, plus the forward over
-    ``min(pairs, LEAF_SLICE)`` boards.  ``None``: no limit."""
+    ``kept`` are held: each pair's ``node`` bytes while it expands, plus
+    the forward over ``min(pairs, LEAF_SLICE)`` boards.  ``None``: no
+    limit."""
     if budget is None:
         return None
-    per = scripted.NODE_BYTES + _KEPT_BYTES
+    per = node + _KEPT_BYTES
     small = min((budget - kept) // (per + board), LEAF_SLICE)
     large = (budget - kept - board * LEAF_SLICE) // per
     return max(small, large if large >= LEAF_SLICE else -1)
@@ -359,8 +362,7 @@ def _backup(values: torch.Tensor, parent: torch.Tensor, m: int,
     return torch.where(is_max, hi, lo)
 
 
-def _replies(nodes: bb.BitState, root_turn: torch.Tensor, cfg: EnvConfig,
-             room):
+def _replies(nodes, root_turn: torch.Tensor, cfg: EnvConfig, room):
     """Expand every legal reply of ``nodes`` (``expand_legal``); the
     replies' terminal rewards turned to the root mover's side.  Returns
     ``(parent, child, reward, root_turn)`` of the replies, or ``None``
@@ -381,15 +383,20 @@ def _total_order(v: torch.Tensor) -> torch.Tensor:
     return torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF)
 
 
-def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
-               state: bb.BitState, budget):
+def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig, state,
+               budget):
     """``lookahead_search`` on one chunk of games within ``budget`` bytes
     (``None``: no limit); ``None`` when a level would not fit."""
     n = state.turn.shape[0]
     dev = state.turn.device
     board = _board_bytes(net)
+    # A pair's bytes while its level expands: words, or a plane board and
+    # the plane rules' temporaries.
+    node = (scripted.PLANE_NODE_BYTES_PER_CELL * cfg.num_actions
+            if isinstance(state, OthelloState) else scripted.NODE_BYTES)
     kept = 0
-    got = expand_legal(state, state.legal, cfg, _room(budget, kept, board))
+    got = expand_legal(state, state.legal, cfg,
+                       _room(budget, kept, board, node))
     if got is None:
         return None
     p1, a1, c1, r1 = got
@@ -398,7 +405,7 @@ def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
     if depth == 1:
         score1 = node_values(net, c1, r1, t1)
     elif depth == 2:
-        got = _replies(c1, t1, cfg, _room(budget, kept, board))
+        got = _replies(c1, t1, cfg, _room(budget, kept, board, node))
         if got is None:
             return None
         p2, c2, r2, t2 = got
@@ -406,7 +413,8 @@ def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
                        c1.turn == t1)
         score1 = torch.where(c1.terminated, r1, best)
     if depth < 3:
-        scores = torch.full((n, 64), NEG, dtype=score1.dtype, device=dev)
+        scores = torch.full((n, cfg.num_actions), NEG, dtype=score1.dtype,
+                            device=dev)
         scores[p1, a1] = score1
         top = scores.topk(2, dim=1).values
         return (torch.argmax(scores, dim=1), scores,
@@ -424,12 +432,12 @@ def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
     rank = torch.arange(p1.shape[0], device=dev) - starts[p1[order]]
     sel, sel_rank = order[rank < beam_k], rank[rank < beam_k]
     cb, tb_ = index_games(c1, sel), t1[sel]
-    got = _replies(cb, tb_, cfg, _room(budget, kept, board))
+    got = _replies(cb, tb_, cfg, _room(budget, kept, board, node))
     if got is None:
         return None
     p2, c2, r2, t2 = got
     kept += _KEPT_BYTES * p2.shape[0]
-    got = _replies(c2, t2, cfg, _room(budget, kept, board))
+    got = _replies(c2, t2, cfg, _room(budget, kept, board, node))
     if got is None:
         return None
     p3, c3, r3, t3 = got
@@ -443,7 +451,8 @@ def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
     moves = torch.zeros((n, beam_k), dtype=torch.int64, device=dev)
     moves[p1[sel], sel_rank] = a1[sel]
     action = moves.gather(1, torch.argmax(table, dim=1, keepdim=True))[:, 0]
-    scores = torch.full((n, 64), NEG, dtype=deep.dtype, device=dev)
+    scores = torch.full((n, cfg.num_actions), NEG, dtype=deep.dtype,
+                        device=dev)
     scores[p1[sel], a1[sel]] = deep
     # Margins: the best deep value over the second, and the beam's last
     # depth-1 value over the first one left out.
@@ -462,7 +471,6 @@ def _lookahead(net, depth: int, beam_k: int, cfg: EnvConfig,
 
 
 def _check_search(depth: int, beam_k: int, cfg: EnvConfig) -> None:
-    check_lookahead_board(cfg)
     if depth not in (1, 2, 3):
         raise ValueError(f"lookahead depth must be 1, 2 or 3, got {depth}")
     if depth == 3 and not 1 <= beam_k <= cfg.num_actions:
@@ -471,11 +479,11 @@ def _check_search(depth: int, beam_k: int, cfg: EnvConfig) -> None:
 
 
 @torch.no_grad()
-def lookahead_search(net: PolicyNet, state: bb.BitState, cfg: EnvConfig,
+def lookahead_search(net: PolicyNet, state, cfg: EnvConfig,
                      depth: int = 1, beam_k: int = 8,
                      expand_chunk: int = 0):
     """``net_lookahead_policy``'s search on a batch of games.  Returns
-    ``(action, scores, margin)``: int64 (N,) decisions; float32 (N, 64)
+    ``(action, scores, margin)``: int64 (N,) decisions; float32 (N, B*B)
     root-perspective values of the searched actions (the beam's deep
     values at its ``beam_k`` children; ``NEG`` elsewhere); float32 (N,)
     the least gap a decision rests on (best over second value, and for the
@@ -512,7 +520,7 @@ def net_lookahead_policy(net: PolicyNet, cfg: EnvConfig, depth: int = 1,
     use_float32()
     _check_search(depth, beam_k, cfg)
 
-    def act(state: bb.BitState, generator=None) -> torch.Tensor:
+    def act(state, generator=None) -> torch.Tensor:
         del generator
         return lookahead_search(net, state, cfg, depth, beam_k,
                                 expand_chunk)[0]

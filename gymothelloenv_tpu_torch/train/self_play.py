@@ -33,7 +33,7 @@ words (``core.bitboard.BitState``): on the card every ply
 (``policies.scripted.expand_legal``) are one launch each of the ply kernel
 (``ops/step.py``).  Other board sizes, and 8x8 with ``force_plane``, keep
 plane games (``core.state.OthelloState``) and step them with the plane
-rules; the lookahead override is 8x8 only.
+rules; the lookahead override expands either (``expand_legal``).
 
 Also ported: the time-limited collector (``collect_rollout_time_limited``,
 gym's TimeLimit with the fork's TimeLimitMask) and the recurrent one
@@ -73,16 +73,6 @@ NEG = -1e9
 # forward's activations (~16 KB a board for the wide2 net), not the tree's
 # states, are a deep search's memory.
 LEAF_SLICE = 65536
-
-
-def check_lookahead_board(cfg: EnvConfig) -> None:
-    """Raise ``NotImplementedError`` for a value-lookahead search (built
-    on the bitboard ``expand_legal``) on a board other than 8x8."""
-    if cfg.board_size != 8:
-        raise NotImplementedError(
-            "the value-lookahead search runs on the 8x8 bitboard only; "
-            "other board sizes are ROADMAP.md queue 1 item 8b "
-            f"(board_size={cfg.board_size})")
 
 
 @dataclasses.dataclass
@@ -133,23 +123,31 @@ class Draws:
         ``counts`` legal moves, uniform in ``[0, max(count, 1))``."""
         return bb.uniform_index(counts, self.generator)
 
+    def replay_uniforms(self, n: int, device) -> torch.Tensor:
+        """float32 (n,) in [0, 1), one a sampled replay row
+        (``agents.replay.replay_sample_idx``)."""
+        return torch.rand(n, generator=self.generator, device=device)
+
 
 class InjectedDraws:
     """Given draws, consumed in call order: ``colors`` int8 (N,) tensors
     (the first for ``selfplay_init``, then one per slot's reset),
     ``uniforms`` float32 (N,) tensors in (0, 1], one per sampled ply,
     ``rand_left`` (N,) counts (the first for ``selfplay_init``, then one
-    per slot's reset) and ``legal_index`` (N,) move indices, one per ply
-    with random openings."""
+    per slot's reset), ``legal_index`` (N,) move indices, one per ply
+    with random openings, and ``replay_uniforms``, one tensor a replay
+    sample."""
 
     def __init__(self, colors: Iterable[torch.Tensor],
                  uniforms: Iterable[torch.Tensor],
                  rand_left: Iterable[torch.Tensor] = (),
-                 legal_index: Iterable[torch.Tensor] = ()):
+                 legal_index: Iterable[torch.Tensor] = (),
+                 replay_uniforms: Iterable[torch.Tensor] = ()):
         self._colors = iter(colors)
         self._uniforms = iter(uniforms)
         self._rand_left = iter(rand_left)
         self._legal_index = iter(legal_index)
+        self._replay_uniforms = iter(replay_uniforms)
 
     def colors(self, n: int, device) -> torch.Tensor:
         return next(self._colors).to(device=device, dtype=torch.int8)
@@ -165,15 +163,18 @@ class InjectedDraws:
         return next(self._legal_index).to(device=counts.device,
                                           dtype=torch.int64)
 
+    def replay_uniforms(self, n: int, device) -> torch.Tensor:
+        return next(self._replay_uniforms).to(device=device,
+                                              dtype=torch.float32)
 
-def node_values(net: torch.nn.Module, nodes: bb.BitState,
-                reward: torch.Tensor,
+
+def node_values(net: torch.nn.Module, nodes, reward: torch.Tensor,
                 root_turn: torch.Tensor) -> torch.Tensor:
     """Root-perspective values (float32 (M,)) of a flat batch of search
-    nodes: a terminal node's ``reward`` (already from the root mover's
-    side), else the value head, negated where the node's player to move
-    is not the root's.  The net runs over ``LEAF_SLICE`` boards at a
-    time."""
+    nodes (a ``BitState`` or a plane ``OthelloState``): a terminal node's
+    ``reward`` (already from the root mover's side), else the value head,
+    negated where the node's player to move is not the root's.  The net
+    runs over ``LEAF_SLICE`` boards at a time."""
     m = nodes.turn.shape[0]
     values = [net(make_state(index_games(nodes, slice(i, i + LEAF_SLICE)))
                   )[1] for i in range(0, m, LEAF_SLICE)]
@@ -183,22 +184,23 @@ def node_values(net: torch.nn.Module, nodes: bb.BitState,
 
 
 @torch.no_grad()
-def lookahead_action_values(net: torch.nn.Module, env: bb.BitState,
+def lookahead_action_values(net: torch.nn.Module, env,
                             cfg: EnvConfig) -> torch.Tensor:
-    """float32 (N, 64) root-mover-perspective child values of the legal
-    actions (JAX self_play.py:85-143): each legal move stepped with the
-    rules of ``cfg`` (one ply-kernel launch for all), a terminal child
-    scored by its true reward, any other by the value head (negated when
-    the turn passes).  Illegal actions hold ``NEG``."""
+    """float32 (N, B*B) root-mover-perspective child values of the legal
+    actions (JAX self_play.py:85-143) of bit or plane games: each legal
+    move stepped with the rules of ``cfg`` (``expand_legal``: on 8x8 one
+    ply-kernel launch for all), a terminal child scored by its true
+    reward, any other by the value head (negated when the turn passes).
+    Illegal actions hold ``NEG``."""
     parent, action, child, reward = expand_legal(env, env.legal, cfg)
     vals = node_values(net, child, reward, env.turn[parent])
-    out = torch.full((env.turn.shape[0], 64), NEG, dtype=vals.dtype,
-                     device=vals.device)
+    out = torch.full((env.turn.shape[0], cfg.num_actions), NEG,
+                     dtype=vals.dtype, device=vals.device)
     out[parent, action] = vals
     return out
 
 
-Override = Callable[[torch.nn.Module, bb.BitState, torch.Tensor, object],
+Override = Callable[[torch.nn.Module, object, torch.Tensor, object],
                     torch.Tensor]
 
 
@@ -209,10 +211,9 @@ def make_lookahead_override(cfg: EnvConfig, tau: float = 0.0) -> Override:
     ``softmax(values / tau)`` over the legal actions (one inverse-CDF
     uniform a row from ``draws``; values on the training disk-difference
     scale, +-64); ``tau`` = 0 plays the argmax, ties to the lowest index.
-    8x8 only: other boards raise ``NotImplementedError``.
+    Any board size: bit games on 8x8, plane games otherwise.
 
     Returns ``override(net, env, legal, draws) -> int64 actions``."""
-    check_lookahead_board(cfg)
 
     def override(net, env, legal, draws):
         vals = lookahead_action_values(net, env, cfg)

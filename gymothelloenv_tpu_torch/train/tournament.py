@@ -31,6 +31,15 @@ from gymothelloenv_tpu_torch.utils.device import (resolve_device,
 PolicyFn = Callable[[object, "torch.Generator | None"], torch.Tensor]
 
 
+def draw_max_rand_steps(draws, n: int, init_rand_steps: int,
+                        device) -> torch.Tensor:
+    """int64 (n,) random-opening plies, ``2 * randint(0, init // 2 + 1)``
+    a game (othello.py:153-154; JAX ``draw_max_rand_steps``), drawn
+    through ``draws`` (``train.self_play.Draws``, or the tests'
+    ``InjectedDraws``)."""
+    return draws.rand_left(n, init_rand_steps, device)
+
+
 def play_games(act_black: PolicyFn, act_white: PolicyFn, num_games: int,
                init_rand_steps: int = 0, max_plies: int = 0,
                generator: torch.Generator | None = None,
@@ -50,7 +59,7 @@ def play_games(act_black: PolicyFn, act_white: PolicyFn, num_games: int,
         draws = Draws(generator)
     eng = get_engine(cfg)
     state = eng.reset_batch(num_games, cfg, device)
-    rand_left = draws.rand_left(num_games, init_rand_steps, device)
+    rand_left = draw_max_rand_steps(draws, num_games, init_rand_steps, device)
     ply = 0
     while ply < max_plies and not bool(state.terminated.all()):
         a_rand = eng.random_legal(
@@ -91,15 +100,17 @@ def net_tournament_policy(net: torch.nn.Module) -> PolicyFn:
 def evaluate(act: PolicyFn, opponent: PolicyFn, num_games: int,
              init_rand_steps: int = 10,
              generator: torch.Generator | None = None,
-             cfg: EnvConfig = EnvConfig(), device=None):
+             cfg: EnvConfig = EnvConfig(), device=None, draws=None):
     """``num_games // 2`` games with ``act`` as black, as many as white
-    (the ``cli/eval_checkpoint.py`` protocol).  Returns ``(wins, draws,
-    losses)`` for ``act``."""
+    (the ``cli/eval_checkpoint.py`` protocol), ``draws`` as in
+    ``play_games``.  Returns ``(wins, draws, losses)`` for ``act``."""
     n = num_games // 2
     as_black = play_games(act, opponent, n, init_rand_steps,
-                          generator=generator, cfg=cfg, device=device)
+                          generator=generator, cfg=cfg, device=device,
+                          draws=draws)
     as_white = play_games(opponent, act, n, init_rand_steps,
-                          generator=generator, cfg=cfg, device=device)
+                          generator=generator, cfg=cfg, device=device,
+                          draws=draws)
     wins = int((as_black == -1).sum()) + int((as_white == 1).sum())
     draws = int((as_black == 0).sum()) + int((as_white == 0).sum())
     return wins, draws, 2 * n - wins - draws

@@ -25,11 +25,14 @@ from gymothelloenv_tpu.core.state import EnvConfig as JaxEnvConfig
 from gymothelloenv_tpu.train import ppo_trainer as jtrainer
 from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
 from gymothelloenv_tpu_torch.cli import eval_checkpoint, tournament
+from gymothelloenv_tpu_torch.core import state as core
+from gymothelloenv_tpu_torch.core.engine import PlaneEngine
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.scripts import ladder
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig,
                                                        load_eval_policy,
+                                                       make_network,
                                                        net_lookahead_policy)
 from gymothelloenv_tpu_torch.utils import checkpoint as ck
 from torch_port_helpers import one_torch_thread  # noqa: F401
@@ -89,16 +92,24 @@ def test_eval_checkpoint_same_seed_same_games(tiny_ckpt):
 
 @pytest.mark.parametrize("flag", ["--board-size=6"])
 def test_eval_checkpoint_refuses_unported_flags(flag, tiny_ckpt):
-    """``--board-size 6`` parses now; what stays unported at B != 8 is the
-    value-lookahead search, which raises naming its ROADMAP item; and an
-    8x8 checkpoint on a 6x6 board is refused."""
+    """``--board-size 6`` parses; the value-lookahead search runs on that
+    board (on planes) and plays legal moves at depths 1, 2 and beam-3;
+    and an 8x8 checkpoint on a 6x6 board is refused."""
     args = eval_checkpoint.build_parser().parse_args(["--load", "x.msgpack",
                                                       flag])
     assert args.board_size == 6
-    net, _ = load_eval_policy(tiny_ckpt, EnvConfig(), "cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        net_lookahead_policy(net, EnvConfig(board_size=6,
-                                            num_disk_as_reward=True))
+    cfg6 = EnvConfig(board_size=6, num_disk_as_reward=True)
+    net = make_network(cfg6, hidden_size=32, seed=1, device="cpu").eval()
+    states = core.reset(cfg6, 5, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(6):
+        states = core.step(states, PlaneEngine().random_legal(
+            states, generator=gen), cfg6).state
+    for depth in (1, 2, 3):
+        act = net_lookahead_policy(net, cfg6, depth=depth, beam_k=3)(states)
+        assert act.shape == (5,)
+        live = ~states.terminated
+        assert bool(states.legal[torch.arange(5), act][live].all()), depth
     with pytest.raises(ValueError, match="8x8 board"):
         eval_checkpoint.main(["--device", "cpu", "--load", tiny_ckpt, flag])
 
@@ -242,9 +253,11 @@ def test_ladder_two_proportion_test():
     assert [c[1] for c in ladder.CELLS] == [
         "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}", "maximin-2",
         "maximin-2", "maximin-2", f"ckpt:{ladder.WIDE2_4K}", "maximin-2",
-        "maximin-2", f"ckpt:{ladder.REC2000}"]
+        "maximin-2", f"ckpt:{ladder.REC2000}", "maximin-2",
+        f"ckpt:{ladder.WIDE2_4K}"]
     assert [c[3:5] for c in ladder.CELLS[3:]] == [
         (963, 1000), (991, 1000), (993, 1000), (891, 1000), (289, 400),
-        (271, 400), (114, 400)]
+        (271, 400), (114, 400), (271, 400), (322, 400)]
     assert [c[0] for c in ladder.CELLS[7:]] == [
-        ladder.REC2000, ladder.REC_WIDE2, ladder.LA3500]
+        ladder.REC2000, ladder.REC_WIDE2, ladder.LA3500, ladder.TS_STUDENT,
+        ladder.TS_STUDENT]

@@ -125,11 +125,13 @@ def test_cli_runs_on_cpu_and_logs_jsonl(tmp_path):
 def test_cli_rejects_unported_flags(flag):
     """The flags of the last slices parse, with JAX's defaults when
     absent; ``--board-size 6`` parses, and the lookahead collection on
-    that board raises naming its ROADMAP item."""
+    that board takes an update."""
     if flag == "--board-size=6":
         assert cli.build_parser().parse_args([flag]).board_size == 6
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            cli.main(CLI_SMALL + [flag, "--lookahead-collect"])
+        trainer = cli.main(CLI_SMALL + [flag, "--lookahead-collect",
+                                        "--num-updates", "1"])
+        assert trainer.update_count == 1
+        assert trainer.env_cfg.board_size == 6
         return
     name, _, value = flag[2:].replace("-", "_").partition("=")
     default = vars(cli.build_parser().parse_args([]))[name]

@@ -100,9 +100,10 @@ def othello_state(s: bb.BitState) -> OthelloState:
 
 class DiskDiffNet(torch.nn.Module):
     """The port twin of JAX's stub ``_stub_apply``
-    (tests/test_chunked_search.py:101-105): zero logits and the value
-    ``(black - white disks) * (2 * turn plane - 1)``, computed in the same
-    float32 steps, so search values are exact integers on both sides."""
+    (tests/test_chunked_search.py:101-105): zero logits (one per cell of
+    the input's board, any size) and the value ``(black - white disks) *
+    (2 * turn plane - 1)``, computed in the same float32 steps, so search
+    values are exact integers on both sides."""
 
     def __init__(self):
         super().__init__()
@@ -112,7 +113,7 @@ class DiskDiffNet(torch.nn.Module):
     def forward(self, obs):
         diff = obs[:, 0].sum((1, 2)) - obs[:, 1].sum((1, 2))
         turn = 2.0 * obs[:, 2, 0, 0] - 1.0
-        return obs.new_zeros(obs.shape[0], 64), diff * turn
+        return obs.new_zeros(obs.shape[0], obs.shape[-1] ** 2), diff * turn
 
 
 @functools.cache
