@@ -100,12 +100,24 @@ set to 0 just before it and read just after:
     batch 4096, PER, double, dueling, n-step 3, a 1M replay) for 2
     chunks, a checkpoint round trip, the PER sampler on the 1M ring and
     one update card vs CPU, and one chunk against the greedy opponent
-    with the kernels of a ply ([dqn]).
+    with the kernels of a ply ([dqn]);
+  * cli/rainbow_train.py at JAX job 58's configuration (N 1024, 512
+    plies, batch 4096, train interval 512, a 1M PER replay) for 2 chunks,
+    the committed rainbow_pool_600 net card vs CPU, one C51 update card vs
+    CPU with two faults planted on the card, and one chunk's collection in
+    the opponent-pool mode ([rainbow]);
+  * cli/a2c_train.py at RESULTS.md's A2C configuration (N 1024, T 16,
+    GAE) for 5 updates, then one update card vs CPU ([a2c]);
+  * cli/acktr_train.py at JAX job 08b's configuration (--net conv, N 1024,
+    T 16, entropy 0.05, kl-clip 0.001) for 12 updates through an
+    eigendecomposition refresh, one update card vs CPU on a refresh step,
+    and 3 updates of --net mlp ([acktr]).
 
-It reads one file outside gymothelloenv_tpu_torch/, the committed
-data/selfplay/ppo_wide2_4k.msgpack (the teacher's warm start); its other
-nets are seeded inits and the checkpoints it reads are the ones it wrote,
-in a temporary directory.  It exits non-zero on any failure, without a
+It reads two files outside gymothelloenv_tpu_torch/, the committed
+data/selfplay/ppo_wide2_4k.msgpack (the teacher's warm start) and
+data/selfplay/rainbow_pool_600.msgpack; its other nets are seeded inits
+and the checkpoints it reads are the ones it wrote, in a temporary
+directory.  It exits non-zero on any failure, without a
 CUDA card, or when run outside a checkout of the repository.
 
 K1 is held against its plain version at every lane count (1, 2, 4, 8) on
@@ -323,6 +335,32 @@ DQN_ENVS, DQN_PLIES, DQN_BATCH, DQN_INTERVAL = 1024, 512, 4096, 512
 DQN_REPLAY, DQN_CHUNKS, DQN_REF_RTOL = 1_000_000, 2, 1e-4
 DQN_STEP_RTOL = 1e-3
 DQN_PLANTS = ("eps outside the root", "momentum 0.9", "gamma^1")
+# [rainbow]: JAX job 58's training run (data/queue/done/58_rainbow_after.job:
+# N 1024, 512 plies a chunk, batch 4096, train interval 512, no warm-up, a
+# 1M PER replay, seed 4), RAINBOW_CHUNKS chunks of its 60.  The committed
+# RAINBOW_CKPT's atom logits card vs CPU, noise off and on, to
+# RAINBOW_FWD_RTOL of the largest; one update card vs CPU (the CPU
+# replaying the card's rows, noise, ReLU masks and argmax), Adam's step per
+# leaf to RAINBOW_STEP_RTOL of the leaf's largest, with RAINBOW_PLANTS on
+# the card reading above it; a chunk's collection in job 07's pool mode
+# (--opponent-pool 8).
+RAINBOW_ENVS, RAINBOW_PLIES, RAINBOW_BATCH = 1024, 512, 4096
+RAINBOW_INTERVAL, RAINBOW_CHUNKS = 512, 2
+RAINBOW_FWD_RTOL, RAINBOW_STEP_RTOL = 1e-5, 1e-3
+RAINBOW_CKPT = "data/selfplay/rainbow_pool_600.msgpack"
+RAINBOW_PLANTS = ("per-sample noise", "projection without the clip")
+# [a2c]: RESULTS.md's A2C run (N 1024, T 16, lr 7e-4, entropy 0.01, GAE),
+# A2C_UPDATES updates; one update card vs CPU on a fresh rollout, the
+# RMSprop step per leaf to A2C_STEP_RTOL of the leaf's largest.
+A2C_ENVS, A2C_STEPS, A2C_UPDATES, A2C_STEP_RTOL = 1024, 16, 5, 1e-3
+# [acktr]: JAX job 08b (data/queue/done/08b_acktr_confirm.job: --net conv,
+# N 1024, T 16, entropy 0.05, kl-clip 0.001), ACKTR_UPDATES updates (t_inv
+# 10: the eigendecompositions refresh at updates 0 and 10); one update
+# card vs CPU on a refresh step, the K-FAC step per leaf to
+# ACKTR_STEP_RTOL of the leaf's largest; then ACKTR_MLP_UPDATES of --net
+# mlp.
+ACKTR_ENVS, ACKTR_STEPS, ACKTR_UPDATES, ACKTR_MLP_UPDATES = 1024, 16, 12, 3
+ACKTR_STEP_RTOL = 1e-3
 DEVICE_TYPE = "cuda"
 
 
@@ -611,7 +649,22 @@ def main():
         say(f"[{label}] wall seconds {wall[label]:.2f}")
     say("[search and trainers slice] wall seconds of its phases: "
         + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
-    later = {**slice7, **slice8, **slice9}
+
+    # 29. rainbow, 30. a2c, 31. acktr ----------------------------------------
+    slice10, wall = {}, {}
+    for label, phase in (
+            ("rainbow", lambda: _rainbow_phase(torch, tb, legal_mask, step,
+                                               dev)),
+            ("a2c", lambda: _a2c_phase(torch, tb, legal_mask, step, dev)),
+            ("acktr", lambda: _acktr_phase(torch, tb, legal_mask, step,
+                                           dev))):
+        t0 = time.perf_counter()
+        slice10[label] = phase()
+        wall[label] = time.perf_counter() - t0
+        say(f"[{label}] wall seconds {wall[label]:.2f}")
+    say("[rainbow, a2c and acktr slice] wall seconds of its phases: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    later = {**slice7, **slice8, **slice9, **slice10}
 
     # 11. kernels line --------------------------------------------------------
     rows = [
@@ -671,6 +724,11 @@ def main():
                  "collect_seconds", "update_seconds", "plies")},
              dqn={k: slice9["dqn"][k] for k in ("chunks", "greedy",
                                                 "plies")},
+             rainbow={k: slice10["rainbow"][k] for k in ("chunks", "pool",
+                                                        "plies")},
+             a2c={k: slice10["a2c"][k] for k in (
+                 "collect_seconds", "update_seconds", "plies")},
+             acktr={k: slice10["acktr"][k] for k in ("runs", "plies")},
              **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
@@ -3180,9 +3238,7 @@ def _dqn_phase(torch, tb, legal_mask, step, dev):
             "--log-every", "1", "--seed", "4", "--device", DEVICE_TYPE]
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "dqn.msgpack")
-        legal_mask.launches = 0
-        step.bit_step.launches = 0
-        step.reset_where.launches = 0
+        _zero_counts(legal_mask, step)
         t0 = time.perf_counter()
         with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
             trainer = dqn_train.main(argv + [
@@ -3190,11 +3246,8 @@ def _dqn_phase(torch, tb, legal_mask, step, dev):
                 "--log-dir", tmp])
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(k2_launches=legal_mask.launches,
-                      bit_step_launches=step.bit_step.launches,
-                      reset_launches=step.reset_where.launches)
-        with open(os.path.join(tmp, "metrics.jsonl")) as f:
-            records = [json.loads(line) for line in f]
+        counts = _counts(legal_mask, step)
+        records = _read_metrics(tmp)
         fresh = DQNTrainer(trainer.env_cfg, trainer.dqn_cfg, trainer.rb_cfg,
                            trainer.run_cfg, device=dev)
         fresh.load(ckpt)
@@ -3219,16 +3272,7 @@ def _dqn_phase(torch, tb, legal_mask, step, dev):
             "calls")
     _require_no_k2(counts["k2_launches"], "dqn")
     require(not plain_calls, f"[dqn] ran a plain ply: {plain_calls[:3]}")
-    prev, readings = 0, []
-    for m in chunks:
-        new = m["transitions"] - prev
-        prev = m["transitions"]
-        readings.append(dict(
-            collect_seconds=m["collect_seconds"],
-            update_seconds=m["update_seconds"], updates=m["updates"],
-            updates_per_sec=m["updates"] / m["update_seconds"],
-            transitions_per_sec=new / (m["collect_seconds"]
-                                       + m["update_seconds"])))
+    readings = _chunk_readings(chunks)
 
     # Card vs CPU: the PER sampler on the 1M ring, power-of-two
     # priorities (exact prefix sums on both).  A first draft drew them
@@ -3266,9 +3310,7 @@ def _dqn_phase(torch, tb, legal_mask, step, dev):
     g = DQNTrainer(trainer.env_cfg, trainer.dqn_cfg, trainer.rb_cfg,
                    dataclasses.replace(trainer.run_cfg, opponent="greedy"),
                    device=dev)
-    legal_mask.launches = 0
-    step.bit_step.launches = 0
-    step.reset_where.launches = 0
+    _zero_counts(legal_mask, step)
     with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as gcalls:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3442,6 +3484,574 @@ def _dqn_update_reference(torch, trainer, dqn_mod, rp, gen, dev):
                 step_size_min=min(sizes.values()), planted=planted,
                 loss_rel=lerr, priority_rel=perr, argmax_flips=sum(flips),
                 relu_flips=sum(relu_flips), resampled=resampled)
+
+
+def _chunk_readings(chunks):
+    """Per chunk of a DQN-family run's metrics: collect and update
+    seconds, updates, updates/s and transitions/s."""
+    prev, readings = 0, []
+    for m in chunks:
+        new = m["transitions"] - prev
+        prev = m["transitions"]
+        readings.append(dict(
+            collect_seconds=m["collect_seconds"],
+            update_seconds=m["update_seconds"], updates=m["updates"],
+            updates_per_sec=m["updates"] / m["update_seconds"],
+            transitions_per_sec=new / (m["collect_seconds"]
+                                       + m["update_seconds"])))
+    return readings
+
+
+def _read_metrics(tmp):
+    with open(os.path.join(tmp, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _zero_counts(legal_mask, step):
+    legal_mask.launches = 0
+    step.bit_step.launches = 0
+    step.reset_where.launches = 0
+
+
+def _counts(legal_mask, step):
+    return dict(k2_launches=legal_mask.launches,
+                bit_step_launches=step.bit_step.launches,
+                reset_launches=step.reset_where.launches)
+
+
+def _rainbow_phase(torch, tb, legal_mask, step, dev):
+    """cli.rainbow_train at JAX job 58's configuration (N RAINBOW_ENVS,
+    RAINBOW_PLIES plies a chunk, batch RAINBOW_BATCH, train interval
+    RAINBOW_INTERVAL, n-step 3, a 1M PER replay, no warm-up, seed 4),
+    RAINBOW_CHUNKS chunks and the final 400-game evaluation: seconds a
+    chunk, updates/s and transitions/s; one B1 launch a BitEngine ply and
+    a reset_where a collector ply, no plain ply, no K2; finite losses.
+    Card vs CPU: the committed RAINBOW_CKPT's atom logits on the trained
+    replay's boards, noise off and on; one update
+    (``_rainbow_update_reference``).  Then one chunk's collection in job
+    07's pool mode (a frozen snapshot plays the other colour)."""
+    from gymothelloenv_tpu_torch.agents import rainbow
+    from gymothelloenv_tpu_torch.agents.dqn import featurize3
+    from gymothelloenv_tpu_torch.cli import rainbow_train
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    from gymothelloenv_tpu_torch.models.convert import load_flax_params
+    from gymothelloenv_tpu_torch.train.rainbow_trainer import RainbowTrainer
+    from gymothelloenv_tpu_torch.utils.checkpoint import load_checkpoint
+    say(f"[rainbow] start: rainbow_train --num-envs {RAINBOW_ENVS} "
+        f"--chunk-plies {RAINBOW_PLIES} --batch-size {RAINBOW_BATCH} "
+        f"--train-interval {RAINBOW_INTERVAL} --initial-replay-size 0 "
+        f"--seed 4 --num-chunks {RAINBOW_CHUNKS}; {RAINBOW_CKPT} and one "
+        "update card vs CPU; one chunk in the pool mode")
+    argv = ["--num-envs", str(RAINBOW_ENVS), "--chunk-plies",
+            str(RAINBOW_PLIES), "--batch-size", str(RAINBOW_BATCH),
+            "--train-interval", str(RAINBOW_INTERVAL),
+            "--initial-replay-size", "0", "--test-interval", str(10 ** 9),
+            "--num-test-games", str(TRAIN_TEST_GAMES), "--log-every", "1",
+            "--seed", "4", "--device", DEVICE_TYPE,
+            "--num-chunks", str(RAINBOW_CHUNKS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts(legal_mask, step)
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
+            trainer = rainbow_train.main(argv + ["--log-dir", tmp])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(legal_mask, step)
+        records = _read_metrics(tmp)
+    chunks = [m for m in records if "loss" in m]
+    require(len(chunks) == RAINBOW_CHUNKS, "[rainbow] a chunk was skipped")
+    require(all(math.isfinite(m["loss"]) and m["updates"] > 0
+                and m["epsilon"] == 0.0 for m in chunks),
+            "[rainbow] no update, a loss not finite or epsilon not 0")
+    require(counts["bit_step_launches"] == calls["step_where"]
+            >= RAINBOW_PLIES * RAINBOW_CHUNKS, f"[rainbow] B1 launches "
+            f"{counts['bit_step_launches']} for {calls['step_where']} plies")
+    require(counts["reset_launches"] == calls["reset_where"]
+            == RAINBOW_PLIES * RAINBOW_CHUNKS, "[rainbow] resets: "
+            f"{counts['reset_launches']} launches, {calls['reset_where']} "
+            "calls")
+    _require_no_k2(counts["k2_launches"], "rainbow")
+    require(not plain_calls, f"[rainbow] ran a plain ply: {plain_calls[:3]}")
+    readings = _chunk_readings(chunks)
+
+    # The committed checkpoint on the trained replay's boards.
+    _, params, _, _ = load_checkpoint(os.path.join(HERE, RAINBOW_CKPT))
+    x = featurize3(trainer.replay.board[:RAINBOW_BATCH],
+                   trainer.replay.turn[:RAINBOW_BATCH])
+    net = load_flax_params(rainbow.RainbowNet().to(dev), params)
+    net_cpu = load_flax_params(rainbow.RainbowNet(), params)
+    noise = torch.randn(net.noise_size, device=dev,
+                        generator=torch.Generator(dev).manual_seed(SEED))
+    fwd = {}
+    with torch.no_grad():
+        for label, n in (("noise off", None), ("noise on", noise)):
+            want = net_cpu(x.cpu(), None if n is None else n.cpu())
+            got = net(x, n).cpu()
+            fwd[label] = float((got - want).abs().max()
+                               / want.abs().max())
+            require(bool(torch.isfinite(got).all()) and fwd[label]
+                    <= RAINBOW_FWD_RTOL, f"[rainbow] {RAINBOW_CKPT} "
+                    f"{label}: card vs CPU {fwd[label]:.3e} of the largest")
+    ref = _rainbow_update_reference(torch, trainer, rainbow, dev)
+
+    # A chunk's collection in the pool mode.
+    pool = RainbowTrainer(trainer.env_cfg, trainer.dqn_cfg, trainer.rb_cfg,
+                          dataclasses.replace(trainer.run_cfg,
+                                              opponent_pool=8,
+                                              pool_interval=50),
+                          device=dev)
+    snap = pool._snapshot()
+    _zero_counts(legal_mask, step)
+    with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as pcalls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        added = pool.collect_chunk(snap)
+        torch.cuda.synchronize()
+        pool_collect = time.perf_counter() - t0
+    pcounts = _counts(legal_mask, step)
+    require(pcounts["bit_step_launches"] == pcalls["step_where"]
+            == RAINBOW_PLIES and pcounts["reset_launches"] == RAINBOW_PLIES
+            and added > 0, f"[rainbow] pool chunk: {pcounts} for "
+            f"{pcalls['step_where']} plies, {added} transitions")
+    _require_no_k2(pcounts["k2_launches"], "rainbow pool")
+    require(not plain_calls, "[rainbow] the pool chunk ran a plain ply")
+    out = dict(k2_launches=counts["k2_launches"] + pcounts["k2_launches"],
+               wall_seconds=wall, chunks=readings,
+               bit_step_launches=counts["bit_step_launches"]
+               + pcounts["bit_step_launches"],
+               reset_launches=counts["reset_launches"]
+               + pcounts["reset_launches"],
+               plies=calls["step_where"], forward_rel=fwd, update=ref,
+               pool=dict(collect_seconds=pool_collect, transitions=added))
+    say("[rainbow] chunks: " + "; ".join(
+        f"collect {r['collect_seconds']:.3f} s, {r['updates']} updates in "
+        f"{r['update_seconds']:.3f} s ({r['updates_per_sec']:.1f}/s), "
+        f"{r['transitions_per_sec']:.1f} transitions/s" for r in readings))
+    say(f"[rainbow] ok: {RAINBOW_CHUNKS} chunks and the final evaluation "
+        f"in {wall:.2f} s; {calls['step_where']} plies, "
+        f"{counts['bit_step_launches']} B1 launches, "
+        f"{counts['reset_launches']} reset_where, no K2; losses finite; "
+        f"{RAINBOW_CKPT} card vs CPU {fwd['noise off']:.2e} / "
+        f"{fwd['noise on']:.2e} of the largest logit (noise off / on); one "
+        f"update card vs CPU: Adam's step per leaf {ref['step_rel']:.2e} of "
+        f"its largest (rtol {RAINBOW_STEP_RTOL}), every planted fault "
+        f"above it (least {min(ref['planted'].values()):.2e}), loss "
+        f"{ref['loss_rel']:.2e}, KL priorities {ref['priority_rel']:.2e}; "
+        f"a pool-mode chunk's collection {pool_collect:.3f} s, "
+        f"{added} transitions")
+    return out
+
+
+def _adam_steps(torch, opt):
+    """The step each parameter took in ``opt``'s last ``torch.optim.Adam``
+    step, from its state (torch's formula: ``lr / (1 - b1^t) * m /
+    (sqrt(v) / sqrt(1 - b2^t) + eps)``), on the CPU."""
+    adam = opt.adam
+    group = adam.param_groups[0]
+    b1, b2 = group["betas"]
+    out = []
+    for p in opt.params:
+        s = adam.state[p]
+        t = float(s["step"])
+        denom = (s["exp_avg_sq"].sqrt() / math.sqrt(1 - b2 ** t)
+                 + group["eps"])
+        out.append((-group["lr"] / (1 - b1 ** t) * s["exp_avg"]
+                    / denom).detach().cpu())
+    return out
+
+
+@contextlib.contextmanager
+def _planted_rainbow(torch, rainbow, plant, dev):
+    """While the block runs, Rainbow's update carries ``plant``: noise
+    drawn per sample (the factorized sample of each row its own), or the
+    projection without its clips (``tz`` unclamped, the interpolation
+    kernel ``1 - |b - k|`` not cut at 0)."""
+    real_fwd = rainbow.NoisyLinear.forward
+    real_proj = rainbow._project_distribution
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    f = rainbow._scale_noise
+
+    def per_sample(self, x, noise=None):
+        if noise is None:
+            return real_fwd(self, x)
+        n = x.shape[0]
+        f_in = f(torch.randn(n, self.in_features, device=x.device,
+                             generator=gen))
+        f_out = f(torch.randn(n, self.out_features, device=x.device,
+                              generator=gen))
+        return (x @ self.w_mu + self.b_mu
+                + ((x * f_in) @ self.w_sigma) * f_out
+                + self.b_sigma * f_out)
+
+    def unclipped(next_probs, rewards, not_done, cfg):
+        z = cfg.support(next_probs.device)
+        tz = rewards[:, None] + not_done[:, None] * cfg.gamma_n * z[None]
+        dz = (cfg.v_max - cfg.v_min) / (cfg.num_atoms - 1)
+        b = (tz - cfg.v_min) / dz
+        k = torch.arange(cfg.num_atoms, dtype=torch.float32,
+                         device=next_probs.device)
+        w = 1.0 - torch.abs(b[:, :, None] - k[None, None, :])
+        return torch.einsum("ns,nst->nt", next_probs, w)
+
+    if plant == "per-sample noise":
+        rainbow.NoisyLinear.forward = per_sample
+    elif plant == "projection without the clip":
+        rainbow._project_distribution = unclipped
+    try:
+        yield
+    finally:
+        rainbow.NoisyLinear.forward = real_fwd
+        rainbow._project_distribution = real_proj
+
+
+def _rainbow_update_reference(torch, trainer, rainbow, dev):
+    """One ``rainbow_train_batch`` update of the trained agent on the
+    trained replay, on the card and on the CPU from the same state: the
+    rows the card samples, three noise vectors drawn on the card for both,
+    the CPU replaying the card's ReLU masks and a* argmax.  Adam's step
+    (``_adam_steps``) per leaf over the leaf's largest CPU step; each
+    parameter held to the CPU's within the two steps' difference plus one
+    float32 rounding of the parameter and of the step; the loss and the
+    KL priorities to DQN_REF_RTOL.  Then the card's update with each
+    planted fault (RAINBOW_PLANTS) must read above RAINBOW_STEP_RTOL."""
+    from gymothelloenv_tpu_torch.agents import replay as rp
+    from gymothelloenv_tpu_torch.train.self_play import InjectedDraws
+    agent, cfg, rb_cfg = trainer.agent, trainer.dqn_cfg, trainer.rb_cfg
+    cpu_agent = rainbow.rainbow_init(cfg, 0, "cpu")
+    cpu_agent.net.load_state_dict(agent.net.state_dict())
+    cpu_agent.target.load_state_dict(agent.target.state_dict())
+    opt_state = copy.deepcopy(agent.optimizer.adam.state_dict())
+    cpu_agent.optimizer.adam.load_state_dict(opt_state)
+    params0 = [p.detach().clone() for p in agent.net.parameters()]
+    names = [k for k, _ in agent.net.named_parameters()]
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    u = torch.rand(cfg.batch_size, generator=gen, device=dev)
+    noise = [torch.randn(agent.net.noise_size, generator=gen, device=dev)
+             for _ in range(3)]
+    replay = trainer.replay
+    card_replay = rp.Replay(**{k: v.clone() for k, v in
+                               vars(replay).items()})
+    cpu_replay = rp.Replay(**{k: v.cpu() for k, v in vars(replay).items()})
+    idx = rp.replay_sample_idx(card_replay, rb_cfg, u)
+    taken, masks, flips, relu_flips = [], [], [], []
+
+    def update(a, r, record, d):
+        """The update on ``a``; returns (loss, steps, params)."""
+        draws = InjectedDraws((), (), replay_uniforms=[u.to(d)],
+                              normals=[n.to(d) for n in noise])
+        real = rainbow.replay_sample_idx
+        rainbow.replay_sample_idx = lambda *args: idx.to(d)
+        try:
+            with _replay_argmax(torch, taken, record, flips), \
+                    _relu_masks(torch, masks, record, relu_flips):
+                loss = rainbow.rainbow_train_batch(a, r, cfg, rb_cfg, draws)
+        finally:
+            rainbow.replay_sample_idx = real
+        return (float(loss), _adam_steps(torch, a.optimizer),
+                [p.detach().cpu().clone() for p in a.net.parameters()])
+
+    loss, step_card, p_card = update(agent, card_replay, True, dev)
+    loss_c, step_cpu, p_cpu = update(cpu_agent, cpu_replay, False, "cpu")
+    n_flips, n_relu = sum(flips), sum(relu_flips)    # the CPU's replay
+
+    def step_rel(steps):
+        out = {}
+        for k, s, w in zip(names, steps, step_cpu):
+            big = float(w.abs().max())
+            require(big > 0, f"[rainbow] the reference update did not "
+                    f"move {k}")
+            out[k] = float((s - w).abs().max()) / big
+        return out
+    rel = step_rel(step_card)
+    worst = max(rel, key=rel.get)
+    # The steps are recomputed from Adam's state, so each may sit one
+    # rounding from the one applied: a float32 spacing of each parameter
+    # and of each step.
+    param_excess = max(float(((a - b).abs() - (sa - sb).abs()
+                              - 2.0 ** -22 * (b.abs() + sb.abs())).max())
+                       for a, b, sa, sb in zip(p_card, p_cpu, step_card,
+                                               step_cpu))
+    lerr = abs(loss - loss_c) / max(abs(loss_c), 1e-12)
+    rows = idx.cpu()
+    perr = float(((card_replay.priority.cpu()[rows]
+                   - cpu_replay.priority[rows]).abs()
+                  / cpu_replay.priority[rows].clamp(min=1e-12)).max())
+    planted = {}
+    for plant in RAINBOW_PLANTS:
+        with torch.no_grad():
+            for p, p0 in zip(agent.net.parameters(), params0):
+                p.copy_(p0)
+        agent.optimizer.adam.load_state_dict(copy.deepcopy(opt_state))
+        scratch = rp.Replay(**{k: v.clone() for k, v in
+                               vars(replay).items()})
+        with _planted_rainbow(torch, rainbow, plant, dev):
+            planted[plant] = max(step_rel(update(agent, scratch, False,
+                                                 dev)[1]).values())
+    say(f"[rainbow] one update: the CPU's Adam step per leaf up to "
+        f"{max(float(w.abs().max()) for w in step_cpu):.3e}; card vs CPU "
+        f"per leaf {rel[worst]:.3e} ({worst}); planted faults on the card: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in planted.items())
+        + f"; {n_flips} of {cfg.batch_size} a* and {n_relu} ReLU units "
+        "the CPU's own arithmetic would change")
+    require(rel[worst] <= RAINBOW_STEP_RTOL, f"[rainbow] one update: the "
+            f"step of {worst} differs by {rel[worst]:.3e} of its largest")
+    require(param_excess <= 0, f"[rainbow] one update: a parameter "
+            f"differs by {param_excess:.3e} more than its step and one "
+            "rounding")
+    for plant, reading in planted.items():
+        require(reading > RAINBOW_STEP_RTOL, f"[rainbow] the planted fault "
+                f"'{plant}' reads {reading:.3e}, inside {RAINBOW_STEP_RTOL}")
+    require(lerr <= DQN_REF_RTOL and perr <= DQN_REF_RTOL, f"[rainbow] one "
+            f"update: loss {lerr:.3e}, priorities {perr:.3e} (rtol "
+            f"{DQN_REF_RTOL})")
+    return dict(step_rel=rel[worst], worst_leaf=worst, planted=planted,
+                loss_rel=lerr, priority_rel=perr, argmax_flips=n_flips,
+                relu_flips=n_relu)
+
+
+@contextlib.contextmanager
+def _replay_sample(torch, taken, record, flips):
+    """As ``_replay_argmax`` for ``MaskedCategorical.sample`` (the Fisher
+    sample of ACKTR's update)."""
+    from gymothelloenv_tpu_torch.models.distributions import \
+        MaskedCategorical
+    real, replayed = MaskedCategorical.sample, iter(taken)
+
+    def sample(self, *args, **kwargs):
+        got = real(self, *args, **kwargs)
+        if record:
+            taken.append(got)
+            return got
+        want = next(replayed).to(got.device)
+        flips.append(int((want != got).sum()))
+        return want
+
+    MaskedCategorical.sample = sample
+    try:
+        yield
+    finally:
+        MaskedCategorical.sample = real
+
+
+def _rel_steps(what, names, card, cpu, rtol):
+    """Per leaf: the card's step less the CPU's over the CPU's largest;
+    requires each within ``rtol`` and returns the worst."""
+    rel = {}
+    for k, s, w in zip(names, card, cpu):
+        big = float(w.abs().max())
+        require(big > 0, f"[{what}] the reference update did not move {k}")
+        rel[k] = float((s.cpu() - w).abs().max()) / big
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= rtol, f"[{what}] one update: the step of {worst} "
+            f"differs by {rel[worst]:.3e} of its largest > {rtol}")
+    return worst, rel[worst]
+
+
+def _a2c_phase(torch, tb, legal_mask, step, dev):
+    """cli.a2c_train at RESULTS.md's A2C configuration (N A2C_ENVS, T
+    A2C_STEPS, lr 7e-4, entropy 0.01, GAE) for A2C_UPDATES updates and the
+    final 400-game evaluation: one B1 launch a BitEngine ply, no plain
+    ply, no K2, finite losses; then one a2c_update card vs CPU on a fresh
+    rollout of the trained net (the CPU replaying the card's ReLU masks):
+    the RMSprop step per leaf (``-lr g / sqrt(nu + eps)`` from the clipped
+    gradient and the new ``nu``) within A2C_STEP_RTOL of the leaf's
+    largest."""
+    from gymothelloenv_tpu_torch.agents import a2c
+    from gymothelloenv_tpu_torch.cli import a2c_train
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    from gymothelloenv_tpu_torch.train.self_play import collect_rollout
+    say(f"[a2c] start: a2c_train --num-envs {A2C_ENVS} --num-steps "
+        f"{A2C_STEPS} --use-gae --num-updates {A2C_UPDATES}; one update "
+        "card vs CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts(legal_mask, step)
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
+            trainer = a2c_train.main([
+                "--num-envs", str(A2C_ENVS), "--num-steps", str(A2C_STEPS),
+                "--use-gae", "--num-updates", str(A2C_UPDATES),
+                "--log-every", "1", "--test-interval", str(10 ** 9),
+                "--num-test-games", str(TRAIN_TEST_GAMES), "--seed",
+                str(SEED), "--log-dir", tmp, "--device", DEVICE_TYPE])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(legal_mask, step)
+        records = _read_metrics(tmp)
+    require(len(records) == A2C_UPDATES and all(
+        math.isfinite(m[k]) for m in records
+        for k in ("value_loss", "action_loss", "entropy")),
+        "[a2c] an update was skipped or a loss is not finite")
+    require(counts["bit_step_launches"] == calls["step_where"] > 0
+            and counts["reset_launches"] == calls["reset_where"],
+            f"[a2c] {counts} for {calls}")
+    _require_no_k2(counts["k2_launches"], "a2c")
+    require(not plain_calls, f"[a2c] ran a plain ply: {plain_calls[:3]}")
+
+    # One update card vs CPU on a fresh rollout of the trained net.
+    run = trainer.run_cfg
+    _, rollout, boot = collect_rollout(trainer.net, trainer.sp_state,
+                                       trainer.env_cfg, run.num_steps,
+                                       trainer.draws)
+    net_cpu = copy.deepcopy(trainer.net).to("cpu")
+    opt_cpu = a2c.make_a2c_optimizer(trainer.a2c_cfg, net_cpu.parameters())
+    for d, s in zip(opt_cpu.rms.nu, trainer.optimizer.rms.nu):
+        d.copy_(s.cpu())
+    masks, flips = [], []
+
+    def update(net, opt, roll, bt, record):
+        with _relu_masks(torch, masks, record, flips):
+            m = a2c.a2c_update(net, opt, roll, bt, trainer.a2c_cfg)
+        rms = opt.rms
+        return m, [(torch.rsqrt(nu + rms.eps) * p.grad * -rms.lr).cpu()
+                   for p, nu in zip(rms.params, rms.nu)]
+    m_card, s_card = update(trainer.net, trainer.optimizer, rollout, boot,
+                            True)
+    roll_cpu = type(rollout)(**{k: v.cpu() for k, v in
+                                vars(rollout).items()})
+    m_cpu, s_cpu = update(net_cpu, opt_cpu, roll_cpu, boot.cpu(), False)
+    names = [k for k, _ in trainer.net.named_parameters()]
+    worst, rel = _rel_steps("a2c", names, s_card, s_cpu, A2C_STEP_RTOL)
+    _check_metrics({k: float(v) for k, v in m_card.items()},
+                   {k: float(v) for k, v in m_cpu.items()})
+    out = dict(counts, wall_seconds=wall, plies=calls["step_where"],
+               collect_seconds=[m["collect_seconds"] for m in records],
+               update_seconds=[m["update_seconds"] for m in records],
+               transitions_per_sec=[m["transitions_per_sec"]
+                                    for m in records],
+               update=dict(step_rel=rel, worst_leaf=worst,
+                           relu_flips=sum(flips)))
+    say(f"[a2c] ok: {A2C_UPDATES} updates and the final evaluation in "
+        f"{wall:.2f} s; collect " + ", ".join(
+            f"{x:.3f}" for x in out["collect_seconds"]) + " s, update "
+        + ", ".join(f"{x:.3f}" for x in out["update_seconds"])
+        + f" s; {calls['step_where']} plies, {counts['bit_step_launches']} "
+        f"B1 launches, no K2; one update card vs CPU: the step per leaf "
+        f"{rel:.2e} of its largest ({worst}; rtol {A2C_STEP_RTOL}), "
+        f"{sum(flips)} ReLU units the CPU's own arithmetic would change")
+    return out
+
+
+def _acktr_phase(torch, tb, legal_mask, step, dev):
+    """cli.acktr_train at JAX job 08b's configuration (--net conv, N
+    ACKTR_ENVS, T ACKTR_STEPS, entropy 0.05, kl-clip 0.001) for
+    ACKTR_UPDATES updates, two of them refreshing the eigendecompositions,
+    and the final 400-game evaluation: one B1 launch a BitEngine ply, no
+    plain ply, no K2, finite losses.  Then one acktr_update card vs CPU on
+    a fresh rollout, its K-FAC step count set to a refresh step (20): the
+    Fisher sample's uniforms and the critic's normals drawn on the card
+    for both, the CPU replaying the card's sampled actions and ReLU masks;
+    each parameter's step less the momentum it carried (``lr`` times the
+    scaled natural gradient) within ACKTR_STEP_RTOL of the leaf's
+    largest.  Then ACKTR_MLP_UPDATES updates of --net mlp."""
+    from gymothelloenv_tpu_torch.agents import kfac
+    from gymothelloenv_tpu_torch.agents.a2c import A2CConfig, a2c_returns
+    from gymothelloenv_tpu_torch.cli import acktr_train
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    from gymothelloenv_tpu_torch.train.self_play import (InjectedDraws,
+                                                         collect_rollout)
+    say(f"[acktr] start: acktr_train --net conv --num-envs {ACKTR_ENVS} "
+        f"--num-steps {ACKTR_STEPS} --entropy-coef 0.05 --kl-clip 0.001 "
+        f"--num-updates {ACKTR_UPDATES}; one update card vs CPU on a "
+        f"refresh step; {ACKTR_MLP_UPDATES} updates of --net mlp")
+    base = ["--num-envs", str(ACKTR_ENVS), "--num-steps", str(ACKTR_STEPS),
+            "--entropy-coef", "0.05", "--kl-clip", "0.001", "--log-every",
+            "1", "--test-interval", str(10 ** 9), "--num-test-games",
+            str(TRAIN_TEST_GAMES), "--seed", "32", "--device", DEVICE_TYPE]
+    runs, total = {}, dict(k2_launches=0, bit_step_launches=0,
+                           reset_launches=0)
+    for net, n_up in (("conv", ACKTR_UPDATES), ("mlp", ACKTR_MLP_UPDATES)):
+        with tempfile.TemporaryDirectory() as tmp:
+            _zero_counts(legal_mask, step)
+            t0 = time.perf_counter()
+            with _no_plain(tb) as plain_calls, \
+                    _count_plies(BitEngine) as calls:
+                trainer = acktr_train.main(base + [
+                    "--net", net, "--num-updates", str(n_up), "--log-dir",
+                    tmp])
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counts(legal_mask, step)
+            records = _read_metrics(tmp)
+        require(len(records) == n_up and all(
+            math.isfinite(m[k]) for m in records
+            for k in ("value_loss", "action_loss", "entropy")),
+            f"[acktr] {net}: an update was skipped or a loss is not finite")
+        require(trainer.agent.kfac_actor.step == n_up
+                and trainer.agent.conv == (net == "conv"),
+                f"[acktr] {net}: K-FAC step {trainer.agent.kfac_actor.step}")
+        require(counts["bit_step_launches"] == calls["step_where"] > 0
+                and counts["reset_launches"] == calls["reset_where"],
+                f"[acktr] {net}: {counts} for {calls}")
+        _require_no_k2(counts["k2_launches"], f"acktr {net}")
+        require(not plain_calls, f"[acktr] {net} ran a plain ply")
+        for k in total:
+            total[k] += counts[k]
+        runs[net] = dict(wall_seconds=wall, plies=calls["step_where"],
+                         collect_seconds=[m["collect_seconds"]
+                                          for m in records],
+                         update_seconds=[m["update_seconds"]
+                                         for m in records])
+        if net == "conv":
+            conv = trainer
+
+    # One update card vs CPU on a refresh step.
+    agent, cfg = conv.agent, conv.acktr_cfg
+    run = conv.run_cfg
+    _, rollout, boot = collect_rollout(agent, conv.sp_state, conv.env_cfg,
+                                       run.num_steps, conv.draws)
+    returns = a2c_returns(rollout, boot, A2CConfig(gamma=cfg.gamma))
+    k = returns.numel()
+    rows = (rollout.obs.reshape((k,) + rollout.obs.shape[2:]),
+            rollout.legal.reshape(k, -1), rollout.action.reshape(k),
+            returns.reshape(k))
+    for state in (agent.kfac_actor, agent.kfac_critic):
+        state.step = 2 * cfg.t_inv
+    cpu = copy.deepcopy(agent).to("cpu")
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    u = 1.0 - torch.rand(k, generator=gen, device=dev)
+    normals = torch.randn(k, generator=gen, device=dev)
+    taken, masks, flips, relu_flips = [], [], [], []
+
+    def update(a, d, record):
+        """The update on ``a``; returns (metrics, steps): each leaf's
+        step less the momentum it carried, ``lr * (buf - m buf_before)``,
+        the natural gradient's part."""
+        draws = InjectedDraws((), [u.to(d)], normals=[normals.to(d)])
+        layers = a.kfac_actor.layers + a.kfac_critic.layers
+        before = [ls.momentum.clone() for ls in layers]
+        with _replay_sample(torch, taken, record, flips), \
+                _relu_masks(torch, masks, record, relu_flips):
+            m = kfac.acktr_update(a, *(r.to(d) for r in rows), cfg, draws)
+        steps = []
+        for ls, b in zip(layers, before):
+            s = (cfg.lr * (ls.momentum - cfg.momentum * b)).cpu()
+            steps += [s[:-1], s[-1]]
+        return m, steps
+    m_card, s_card = update(agent, dev, True)
+    m_cpu, s_cpu = update(cpu, "cpu", False)
+    names = [f"{tower}.{i}.{leaf}" for tower in ("actor", "critic")
+             for i in range(len(agent.actor.specs)) for leaf in ("w", "b")]
+    worst, rel = _rel_steps("acktr", names, s_card, s_cpu,
+                            ACKTR_STEP_RTOL)
+    _check_metrics({k: float(v) for k, v in m_card.items()},
+                   {k: float(v) for k, v in m_cpu.items()})
+    out = dict(total, runs=runs, plies=sum(r["plies"] for r in
+                                           runs.values()),
+               update=dict(step_rel=rel, worst_leaf=worst,
+                           sample_flips=sum(flips),
+                           relu_flips=sum(relu_flips)))
+    for net, r in runs.items():
+        say(f"[acktr] --net {net}: collect " + ", ".join(
+            f"{x:.3f}" for x in r["collect_seconds"]) + " s, update "
+            + ", ".join(f"{x:.3f}" for x in r["update_seconds"])
+            + f" s; {r['wall_seconds']:.2f} s with the final evaluation")
+    say(f"[acktr] ok: {out['plies']} plies, {total['bit_step_launches']} "
+        f"B1 launches, no K2; losses finite; one update card vs CPU on a "
+        f"refresh step: the step per leaf {rel:.2e} of its largest "
+        f"({worst}; rtol {ACKTR_STEP_RTOL}); {sum(flips)} Fisher actions "
+        f"and {sum(relu_flips)} ReLU units the CPU's own arithmetic would "
+        "change")
+    return out
 
 
 def _index_policies(torch, tb):

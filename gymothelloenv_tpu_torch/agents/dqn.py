@@ -64,21 +64,24 @@ class DQNConfig:
 
 
 class RMSprop:
-    """optax ``rmsprop(lr, decay=0.9, eps, momentum)`` (``scale_by_rms``
-    -> ``scale_by_learning_rate`` -> ``trace``), on ``.grad``:
+    """optax ``rmsprop(lr, decay, eps, momentum)`` (``scale_by_rms`` ->
+    ``scale_by_learning_rate`` -> ``trace``, or ``identity`` without
+    momentum), on ``.grad``:
 
         nu = (1 - decay) g^2 + decay nu;  u = -lr * g / sqrt(nu + eps)
-        trace = u + momentum * trace;     p += trace
+        trace = u + momentum * trace;     p += trace   (p += u without)
 
-    ``nu`` and the trace start at 0, and eps sits inside the root."""
+    ``nu`` and the trace start at 0, and eps sits inside the root.
+    ``momentum=None`` is optax's default (A2C's optimizer)."""
 
     def __init__(self, params, lr: float, eps: float = 0.01,
-                 momentum: float = 0.95, decay: float = 0.9):
+                 momentum: float | None = 0.95, decay: float = 0.9):
         self.params = [p for p in params if p.requires_grad]
         self.lr, self.eps, self.momentum, self.decay = (lr, eps, momentum,
                                                         decay)
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.trace = [torch.zeros_like(p) for p in self.params]
+        self.trace = ([torch.zeros_like(p) for p in self.params]
+                      if momentum is not None else None)
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -86,31 +89,40 @@ class RMSprop:
 
     @torch.no_grad()
     def step(self) -> None:
-        for p, nu, tr in zip(self.params, self.nu, self.trace):
+        for i, (p, nu) in enumerate(zip(self.params, self.nu)):
             g = p.grad
             nu.mul_(self.decay).add_((1.0 - self.decay) * (g * g))
             u = torch.rsqrt(nu + self.eps) * g * -self.lr
-            tr.mul_(self.momentum).add_(u)
-            p.add_(tr)
+            if self.trace is None:
+                p.add_(u)
+                continue
+            self.trace[i].mul_(self.momentum).add_(u)
+            p.add_(self.trace[i])
 
     def to_optax_state(self, to_tree) -> dict:
         """optax's state as flax stores it: ``{"0": {"nu": tree}, "1": {},
-        "2": {"trace": tree}}``, ``to_tree`` mapping one tensor a
-        parameter to the flax tree (``models.convert.flax_tree``)."""
-        return {"0": {"nu": to_tree(self.nu)}, "1": {},
-                "2": {"trace": to_tree(self.trace)}}
+        "2": {"trace": tree}}`` (``"2": {}`` without momentum),
+        ``to_tree`` mapping one tensor a parameter to the flax tree
+        (``models.convert.flax_tree``)."""
+        trace = {} if self.trace is None else {"trace": to_tree(self.trace)}
+        return {"0": {"nu": to_tree(self.nu)}, "1": {}, "2": trace}
 
     def load_optax_state(self, state, from_tree) -> None:
         """The inverse of ``to_optax_state``; another layout raises
         ``ValueError``."""
+        want = set() if self.trace is None else {"trace"}
         if (not isinstance(state, dict) or set(state) != {"0", "1", "2"}
                 or set(state["0"]) != {"nu"} or state["1"]
-                or set(state["2"]) != {"trace"}):
+                or set(state["2"]) != want):
+            layout = ("without momentum ({'0': {'nu'}, '1': {}, '2': {}})"
+                      if self.trace is None else "with momentum ({'0': "
+                      "{'nu'}, '1': {}, '2': {'trace'}})")
             raise ValueError("optimizer state is not the layout of optax "
-                             "rmsprop with momentum ({'0': {'nu'}, '1': "
-                             "{}, '2': {'trace'}})")
-        for dst, src in ((self.nu, from_tree(state["0"]["nu"])),
-                         (self.trace, from_tree(state["2"]["trace"]))):
+                             f"rmsprop {layout}")
+        pairs = [(self.nu, from_tree(state["0"]["nu"]))]
+        if self.trace is not None:
+            pairs.append((self.trace, from_tree(state["2"]["trace"])))
+        for dst, src in pairs:
             for d, s in zip(dst, src, strict=True):
                 d.copy_(s)
 

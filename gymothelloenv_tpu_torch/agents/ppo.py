@@ -101,19 +101,8 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
-    def clip_grads(self) -> None:
-        """optax ``clip_by_global_norm``: ``g / norm * max_norm`` when
-        ``norm >= max_norm``, else ``g``."""
-        grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        factor = torch.where(norm < self.max_norm, torch.ones_like(norm),
-                             self.max_norm / norm)
-        for g in grads:
-            g.mul_(factor)
-
     def step(self) -> None:
-        self.clip_grads()
+        clip_by_global_norm(self.params, self.max_norm)
         self.adam.step()
         if self.schedule is not None:
             self.schedule.step()
@@ -122,25 +111,13 @@ class Optimizer:
         """The state of JAX's ``make_optimizer`` chain as flax stores it:
         ``{"0": {} (clip), "1": {"0": {count, mu, nu} (adam), "1":
         {count} (schedule) or {} (constant lr)}}``, counts int32 0-d
-        arrays.  ``to_tree`` maps one tensor per parameter, in
-        ``self.params`` order, to the flax tree
-        (``models.convert.flax_tree``); Adam's ``exp_avg``/``exp_avg_sq``
-        are optax's ``mu``/``nu`` and each parameter's ``step`` its
-        ``count``.  Before the first step both are zero."""
-        states = [self.adam.state.get(p, {}) for p in self.params]
-        counts = {int(s["step"]) if "step" in s else 0 for s in states}
-        if len(counts) != 1:
-            raise ValueError(f"Adam steps differ between parameters: "
-                             f"{sorted(counts)}")
-        mu = to_tree([s.get("exp_avg", torch.zeros_like(p))
-                      for p, s in zip(self.params, states)])
-        nu = to_tree([s.get("exp_avg_sq", torch.zeros_like(p))
-                      for p, s in zip(self.params, states)])
+        arrays (``adam_optax_state``).  ``to_tree`` maps one tensor per
+        parameter, in ``self.params`` order, to the flax tree
+        (``models.convert.flax_tree``)."""
         schedule = ({} if self.schedule is None else
                     {"count": np.asarray(self.schedule.last_epoch, np.int32)})
         return {"0": {}, "1": {
-            "0": {"count": np.asarray(counts.pop(), np.int32), "mu": mu,
-                  "nu": nu},
+            "0": adam_optax_state(self.adam, self.params, to_tree),
             "1": schedule}}
 
     def load_optax_state(self, state, from_tree) -> None:
@@ -176,15 +153,9 @@ class Optimizer:
         keys(state["1"]["1"], ("count",) if self.schedule else (),
              "the schedule")
         try:
-            mu, nu = from_tree(adam["mu"]), from_tree(adam["nu"])
+            load_adam_state(self.adam, self.params, adam, from_tree)
         except ValueError as err:
             raise bad(err) from err
-        step = torch.tensor(float(int(np.asarray(adam["count"]))),
-                            dtype=torch.float32)
-        for p, m, v in zip(self.params, mu, nu, strict=True):
-            self.adam.state[p] = {"step": step.clone(),
-                                  "exp_avg": m.to(p).contiguous(),
-                                  "exp_avg_sq": v.to(p).contiguous()}
         if self.schedule is not None:
             k = int(np.asarray(state["1"]["1"]["count"]))
             self.schedule.last_epoch = k
@@ -194,6 +165,51 @@ class Optimizer:
                 group["lr"] = base * lam(k)
             self.schedule._last_lr = [g["lr"] for g in
                                       self.adam.param_groups]
+
+
+def clip_by_global_norm(params, max_norm: float) -> None:
+    """optax ``clip_by_global_norm`` on the params' ``.grad``, in place:
+    ``g / norm * max_norm`` when ``norm >= max_norm``, else ``g``
+    (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, optax
+    does not)."""
+    grads = [p.grad for p in params]
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                         max_norm / norm)
+    for g in grads:
+        g.mul_(factor)
+
+
+def adam_optax_state(adam: torch.optim.Adam, params, to_tree) -> dict:
+    """optax ``scale_by_adam``'s state ``{count, mu, nu}`` of a
+    ``torch.optim.Adam`` over ``params``: ``exp_avg``/``exp_avg_sq`` are
+    ``mu``/``nu`` (through ``to_tree``) and each parameter's ``step`` the
+    int32 ``count``; before the first step all are zero."""
+    states = [adam.state.get(p, {}) for p in params]
+    counts = {int(s["step"]) if "step" in s else 0 for s in states}
+    if len(counts) != 1:
+        raise ValueError(f"Adam steps differ between parameters: "
+                         f"{sorted(counts)}")
+    mu = to_tree([s.get("exp_avg", torch.zeros_like(p))
+                  for p, s in zip(params, states)])
+    nu = to_tree([s.get("exp_avg_sq", torch.zeros_like(p))
+                  for p, s in zip(params, states)])
+    return {"count": np.asarray(counts.pop(), np.int32), "mu": mu, "nu": nu}
+
+
+def load_adam_state(adam: torch.optim.Adam, params, node, from_tree) -> None:
+    """The inverse of ``adam_optax_state``: ``node``'s ``mu``/``nu``
+    through ``from_tree`` (``models.convert.tensors_from_flax``) and its
+    count as every parameter's ``step``.  A tree of another net raises
+    ``ValueError``."""
+    mu, nu = from_tree(node["mu"]), from_tree(node["nu"])
+    step = torch.tensor(float(int(np.asarray(node["count"]))),
+                        dtype=torch.float32)
+    for p, m, v in zip(params, mu, nu, strict=True):
+        adam.state[p] = {"step": step.clone(),
+                         "exp_avg": m.to(p).contiguous(),
+                         "exp_avg_sq": v.to(p).contiguous()}
 
 
 def make_optimizer(cfg: PPOConfig, params) -> Optimizer:

@@ -1,4 +1,4 @@
-"""Carry ``PolicyNet`` (and ``DQNNet``/``DuelingDQNNet``) weights between
+"""Carry ``PolicyNet`` (and every other net of the port) weights between
 flax's param tree and the port.
 
 The flax tree has numpy leaves (``ConvTrunk_0/Conv_{0,1,2}``, ``Dense_0``
@@ -6,11 +6,14 @@ fc, ``Dense_1`` value, ``Dense_2`` logits, and for a recurrent net
 ``GRUCore_0/GRUCell_0/{ir,iz,in,hr,hz,hn}``), with or without the outer
 ``{"params": ...}`` level.  Conv kernels are HWIO in flax and OIHW here;
 Dense kernels are ``(in, out)`` in flax and ``(out, in)`` here; the
-trunk's NHWC flatten keeps the fc weights in JAX's row order.  The DQN
-nets name their flax modules in ``FLAX_MODULES`` (``Dense_0..1``, or the
-dueling ``Dense_0..3``).  The same
-mapping carries any per-parameter tensor, such as Adam's moments
-(``agents/ppo.Optimizer``).
+trunk's NHWC flatten keeps the fc weights in JAX's row order.  The other
+nets name their flax modules in ``FLAX_MODULES`` (the DQN nets'
+``Dense_0..1`` or the dueling ``Dense_0..3``, Rainbow's
+``NoisyDense_0..3``, the actor-critic family's ``Dense_*``).  A parameter
+that is not a torch ``weight``/``bias`` keeps flax's leaf name and layout
+(``NoisyLinear``'s ``w_mu``/``b_mu``/``w_sigma``/``b_sigma``, the
+Gaussian head's top-level ``log_std``).  The same mapping carries any
+per-parameter tensor, such as Adam's moments (``agents/ppo.Optimizer``).
 """
 
 from __future__ import annotations
@@ -36,32 +39,33 @@ _LEAVES = {"weight": "kernel", "bias": "bias"}
 
 def _flax_path(name: str, net=None) -> tuple:
     """A parameter name of ``net`` -> its path in the flax tree: a
-    ``PolicyNet``'s, or the ``FLAX_MODULES`` of a net that has them (the
-    DQN nets)."""
+    ``PolicyNet``'s, or the ``FLAX_MODULES`` of a net that has them; a
+    name without a module is a top-level flax leaf."""
+    if "." not in name:
+        return (name,)
     modules = getattr(net, "FLAX_MODULES", _MODULES)
     module, leaf = name.rsplit(".", 1)
-    return modules[module] + (_LEAVES[leaf],)
+    return modules[module] + (_LEAVES.get(leaf, leaf),)
 
 
-def _to_flax_layout(t: torch.Tensor) -> np.ndarray:
-    """OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``; float32 numpy."""
+def _to_flax_layout(t: torch.Tensor, name: str) -> np.ndarray:
+    """A torch ``weight``: OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``;
+    float32 numpy.  Another parameter keeps its layout."""
     a = t.detach().to("cpu", torch.float32).numpy()
-    if a.ndim == 4:
-        a = np.transpose(a, (2, 3, 1, 0))
-    elif a.ndim == 2:
-        a = a.T
+    if name.endswith("weight"):
+        a = np.transpose(a, (2, 3, 1, 0) if a.ndim == 4 else (1, 0))
     return np.ascontiguousarray(a)
 
 
-def _from_flax_layout(a, like: torch.Tensor, name: str) -> torch.Tensor:
-    """The inverse of ``_to_flax_layout``, shaped and placed like ``like``;
-    a flax leaf of another shape raises."""
+def _from_flax_layout(a, like: torch.Tensor, name: str,
+                      param: str) -> torch.Tensor:
+    """The inverse of ``_to_flax_layout`` for the port's parameter named
+    ``param``, shaped and placed like ``like``; a flax leaf of another
+    shape raises."""
     a = np.asarray(a)
     stored = tuple(a.shape)
-    if a.ndim == 4:
-        a = np.transpose(a, (3, 2, 0, 1))
-    elif a.ndim == 2:
-        a = a.T
+    if param.endswith("weight"):
+        a = np.transpose(a, (3, 2, 0, 1) if a.ndim == 4 else (1, 0))
     if tuple(a.shape) != tuple(like.shape):
         raise ValueError(f"{name}: flax shape {stored} does not fit "
                          f"{tuple(like.shape)}")
@@ -81,7 +85,7 @@ def flax_tree(net: PolicyNet, tensors=None) -> dict:
         node = tree
         for key in outer:
             node = node.setdefault(key, {})
-        node[leaf] = _to_flax_layout(t)
+        node[leaf] = _to_flax_layout(t, name)
     return {"params": tree}
 
 
@@ -98,7 +102,7 @@ def tensors_from_flax(net: PolicyNet, tree) -> list:
             if not isinstance(node, dict) or key not in node:
                 raise ValueError(f"flax tree has no {'/'.join(path)}")
             node = node[key]
-        out.append(_from_flax_layout(node, param, "/".join(path)))
+        out.append(_from_flax_layout(node, param, "/".join(path), name))
         seen.add(path)
     extra = ["/".join(path) for path, _ in flax_leaves(p)
              if path not in seen]

@@ -1,7 +1,10 @@
-"""Masked categorical action distribution — the port of
-``models/distributions.py::MaskedCategorical``.
+"""Action distributions — the port of ``models/distributions.py``: the
+masked categorical of the board games, and ``DiagNormal``/
+``BernoulliDist`` (the vendored ``FixedNormal``/``FixedBernoulli``,
+distributions.py:36-57) of the actor-critic family's continuous and binary
+heads, whose log-probs and entropies sum over the action dimension.
 
-Semantics kept from the reference:
+The masked categorical keeps the reference's semantics:
   * sampling / log-prob over the legal subset == softmax with illegal
     logits at -1e9;
   * an empty legal set gives action 0 and log-prob 0 (model.py:71-74);
@@ -14,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.nn import functional as F
 
 _NEG_INF = -1e9
 
@@ -70,3 +74,73 @@ class MaskedCategorical:
         """Entropy of the unmasked softmax (reference entropy bonus)."""
         logp = torch.log_softmax(self.logits, dim=-1)
         return -(torch.exp(logp) * logp).sum(dim=-1)
+
+
+_LOG_2PI = 1.8378770664093453
+
+
+@dataclasses.dataclass
+class DiagNormal:
+    """Independent Gaussian per action dimension (FixedNormal,
+    distributions.py:36-44; JAX ``DiagNormal``): ``log_prob``/``entropy``
+    sum over the last dimension, ``mode`` is the mean."""
+    mean: torch.Tensor     # (..., D)
+    log_std: torch.Tensor  # (..., D) or broadcastable
+
+    def sample(self, eps: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+        """``mean + exp(log_std) * eps``, ``eps`` standard normals shaped
+        like the mean, given or drawn from ``generator``."""
+        if eps is None:
+            eps = torch.randn(self.mean.shape, generator=generator,
+                              device=self.mean.device, dtype=self.mean.dtype)
+        return self.mean + torch.exp(self.log_std) * eps
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def log_prob(self, actions: torch.Tensor) -> torch.Tensor:
+        z = (actions - self.mean) * torch.exp(-self.log_std)
+        per_dim = -0.5 * (z ** 2) - self.log_std - 0.5 * _LOG_2PI
+        return per_dim.sum(dim=-1)
+
+    def entropy(self) -> torch.Tensor:
+        per_dim = 0.5 + 0.5 * _LOG_2PI + self.log_std
+        return per_dim.expand_as(self.mean).sum(dim=-1)
+
+
+@dataclasses.dataclass
+class BernoulliDist:
+    """Independent Bernoulli per output bit (FixedBernoulli,
+    distributions.py:48-57; JAX ``BernoulliDist``): ``log_prob``/
+    ``entropy`` sum over the last dimension, ``mode`` thresholds the
+    probabilities at 0.5."""
+    logits: torch.Tensor   # (..., D)
+
+    def probs(self) -> torch.Tensor:
+        return torch.sigmoid(self.logits)
+
+    def sample(self, u: torch.Tensor | None = None,
+               generator: torch.Generator | None = None) -> torch.Tensor:
+        """float32 bits ``u < probs`` (``jax.random.bernoulli``), ``u``
+        uniforms in [0, 1) shaped like the logits, given or drawn from
+        ``generator``."""
+        p = self.probs()
+        if u is None:
+            u = torch.rand(p.shape, generator=generator, device=p.device,
+                           dtype=p.dtype)
+        return (u < p).to(torch.float32)
+
+    def mode(self) -> torch.Tensor:
+        return (self.probs() > 0.5).to(torch.float32)
+
+    def log_prob(self, actions: torch.Tensor) -> torch.Tensor:
+        per_dim = (actions * F.logsigmoid(self.logits)
+                   + (1.0 - actions) * F.logsigmoid(-self.logits))
+        return per_dim.sum(dim=-1)
+
+    def entropy(self) -> torch.Tensor:
+        p = self.probs()
+        per_dim = (F.softplus(-self.logits) * p
+                   + F.softplus(self.logits) * (1.0 - p))
+        return per_dim.sum(dim=-1)

@@ -1,8 +1,10 @@
 """``PolicyNet`` with the ``conv`` trunk, feed-forward or with a GRU core,
-the frame-stack cell, and the DQN Q-networks — the port of
-``models/nets.py`` (``ConvTrunk`` impl="conv", ``GRUCore``, ``PolicyNet``,
-``DQNNet``, ``DuelingDQNNet``; the vendored masked ``Policy`` +
-``CNNBase``, model.py:19-98, :201-314; dqn.py:73-127) and of
+the frame-stack cell, the DQN Q-networks and the actor-critic family —
+the port of ``models/nets.py`` (``ConvTrunk`` impl="conv", ``GRUCore``,
+``PolicyNet``, ``DQNNet``, ``DuelingDQNNet``, ``ActorCriticNet``,
+``MLPBase``, ``DiagGaussianHead``, ``BernoulliHead``; the vendored masked
+``Policy`` + ``CNNBase``/``MLPBase``, model.py:19-98, :201-348; dqn.py:
+73-127; ppo.py:29-77; distributions.py:75-109) and of
 ``train/ppo_trainer.py::make_apply_fn_framestack``.
 
 Input is NCHW ``(N, 4K, B, B)`` float32 as in JAX (K > 1 with frame
@@ -33,6 +35,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from gymothelloenv_tpu_torch.models.distributions import (BernoulliDist,
+                                                          DiagNormal)
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
 
@@ -206,6 +210,24 @@ class FrameStackCell(nn.Module):
         return logits, value, x[:, 4:].reshape(n, self.hidden_size)
 
 
+def torch_default_init(net: nn.Module, generator=None) -> None:
+    """torch's default kernel init (kaiming-uniform, ``a = sqrt(5)``; JAX's
+    ``torch_default_init``) and zero biases, as flax's, on every conv and
+    linear layer of ``net``."""
+    for m in net.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
+                                     generator=generator)
+            nn.init.zeros_(m.bias)
+
+
+def _orthogonal(layers, generator=None) -> None:
+    """Orthogonal kernels at each ``(layer, gain)``'s gain, zero biases."""
+    for layer, gain in layers:
+        nn.init.orthogonal_(layer.weight, gain=gain, generator=generator)
+        nn.init.zeros_(layer.bias)
+
+
 class DQNNet(nn.Module):
     """Q-network (dqn.py:73-95; JAX ``DQNNet``): the trunk over 3 input
     planes (``agents.dqn.featurize3``) -> fc 128 + ReLU -> fc ``A``.
@@ -226,13 +248,7 @@ class DQNNet(nn.Module):
         self.out = nn.Linear(128, num_actions)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
-        """torch's default kernel init (kaiming-uniform, ``a = sqrt(5)``;
-        JAX's ``torch_default_init``) and zero biases, as flax's."""
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
-                nn.init.kaiming_uniform_(m.weight, a=math.sqrt(5),
-                                         generator=generator)
-                nn.init.zeros_(m.bias)
+        torch_default_init(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """float32 (N, 3, B, B) -> Q values (N, A)."""
@@ -266,6 +282,107 @@ class DuelingDQNNet(DQNNet):
         adv = self.adv(torch.relu(self.adv_fc(feat)))
         val = self.val(torch.relu(self.val_fc(feat)))
         return val + adv - adv.mean(dim=-1, keepdim=True)
+
+
+class ActorCriticNet(nn.Module):
+    """The standalone PPO net (ppo.py:29-77; JAX ``ActorCriticNet``): the
+    trunk -> fc 128 + ReLU -> raw logits (``num_actions``) and a value,
+    torch's default init.  ``forward(x)`` gives ``(logits, value)``."""
+
+    FLAX_MODULES = {"trunk.conv0": ("ConvTrunk_0", "Conv_0"),
+                    "trunk.conv1": ("ConvTrunk_0", "Conv_1"),
+                    "trunk.conv2": ("ConvTrunk_0", "Conv_2"),
+                    "fc": ("Dense_0",), "logits": ("Dense_1",),
+                    "value": ("Dense_2",)}
+
+    def __init__(self, num_actions: int = 64, board_size: int = 8,
+                 in_channels: int = 4):
+        super().__init__()
+        self.trunk = ConvTrunk(in_channels)
+        side = trunk_side(board_size)
+        self.fc = nn.Linear(64 * side * side, 128)
+        self.logits = nn.Linear(128, num_actions)
+        self.value = nn.Linear(128, 1)
+
+    reset_parameters = torch_default_init
+
+    def forward(self, x: torch.Tensor):
+        h = torch.relu(self.fc(self.trunk(x)))
+        return self.logits(h), self.value(h)[..., 0]
+
+
+class MLPBase(nn.Module):
+    """2 x ``hidden_size`` tanh actor and critic towers (model.py:317-348;
+    JAX ``MLPBase``): ``forward(x)`` gives ``(logits, value)`` of flat
+    ``(..., in_features)`` inputs.  Orthogonal init: sqrt(2) for the
+    towers, 1.0 for the value, 0.01 for the logits; zero biases.  flax
+    names the layers in call order: ``Dense_0..1`` actor, ``Dense_2..3``
+    critic, ``Dense_4`` value, ``Dense_5`` logits."""
+
+    FLAX_MODULES = {"actor0": ("Dense_0",), "actor1": ("Dense_1",),
+                    "critic0": ("Dense_2",), "critic1": ("Dense_3",),
+                    "value": ("Dense_4",), "logits": ("Dense_5",)}
+
+    def __init__(self, in_features: int, num_actions: int,
+                 hidden_size: int = 64):
+        super().__init__()
+        self.actor0 = nn.Linear(in_features, hidden_size)
+        self.actor1 = nn.Linear(hidden_size, hidden_size)
+        self.critic0 = nn.Linear(in_features, hidden_size)
+        self.critic1 = nn.Linear(hidden_size, hidden_size)
+        self.value = nn.Linear(hidden_size, 1)
+        self.logits = nn.Linear(hidden_size, num_actions)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        gain = math.sqrt(2.0)
+        _orthogonal([(self.actor0, gain), (self.actor1, gain),
+                     (self.critic0, gain), (self.critic1, gain),
+                     (self.value, 1.0), (self.logits, 0.01)], generator)
+
+    def forward(self, x: torch.Tensor):
+        a = torch.tanh(self.actor1(torch.tanh(self.actor0(x))))
+        c = torch.tanh(self.critic1(torch.tanh(self.critic0(x))))
+        return self.logits(a), self.value(c)[..., 0]
+
+
+class DiagGaussianHead(nn.Module):
+    """``DiagGaussian`` (distributions.py:75-96; JAX ``DiagGaussianHead``):
+    an orthogonal(1.0) mean projection (flax ``Dense_0``) and a
+    state-independent log-std ``log_std``, zero at init.  ``forward(x)``
+    gives a ``DiagNormal``."""
+
+    FLAX_MODULES = {"mean": ("Dense_0",)}
+
+    def __init__(self, in_features: int, num_outputs: int):
+        super().__init__()
+        self.mean = nn.Linear(in_features, num_outputs)
+        self.log_std = nn.Parameter(torch.zeros(num_outputs))
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        _orthogonal([(self.mean, 1.0)], generator)
+        nn.init.zeros_(self.log_std)
+
+    def forward(self, x: torch.Tensor) -> DiagNormal:
+        mean = self.mean(x)
+        return DiagNormal(mean=mean, log_std=self.log_std.expand_as(mean))
+
+
+class BernoulliHead(nn.Module):
+    """``Bernoulli`` (distributions.py:99-109; JAX ``BernoulliHead``): an
+    orthogonal(1.0) logit projection (flax ``Dense_0``) over independent
+    bits.  ``forward(x)`` gives a ``BernoulliDist``."""
+
+    FLAX_MODULES = {"proj": ("Dense_0",)}
+
+    def __init__(self, in_features: int, num_outputs: int):
+        super().__init__()
+        self.proj = nn.Linear(in_features, num_outputs)
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        _orthogonal([(self.proj, 1.0)], generator)
+
+    def forward(self, x: torch.Tensor) -> BernoulliDist:
+        return BernoulliDist(logits=self.proj(x))
 
 
 def params_net(policy: nn.Module) -> PolicyNet:

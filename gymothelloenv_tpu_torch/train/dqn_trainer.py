@@ -30,12 +30,17 @@ a chunk writes.  One host read a chunk: its number of transitions.
 
 The algorithm hooks (``_setup_algo``, ``_init_agent``, ``_epsilon``,
 ``_agent_act``, ``_agent_train_batch``, ``_opponent_greedy`` and
-``_eval_act``) are what a subclass (Rainbow) overrides.
+``_eval_act``) are what a subclass (``train/rainbow_trainer.py``)
+overrides.  Where JAX's hooks take a key, these take a draws object: the
+acting, training and evaluation hooks draw every random number they need
+(epsilon uniforms, random moves, replay uniforms, Rainbow's noise) from
+it.
 
 Randomness: one ``train.self_play.Draws`` over a generator on the training
 device, seeded from ``DQNRunConfig.seed``: colours, random-opening counts,
-random legal moves, the epsilon uniforms and the replay's uniforms; and
-``random.Random(seed)`` for the pool's draws, as JAX.
+random legal moves, the epsilon uniforms, the replay's uniforms and the
+noisy nets' normals; and ``random.Random(seed)`` for the pool's draws, as
+JAX.
 """
 
 from __future__ import annotations
@@ -166,19 +171,19 @@ class DQNTrainer:
     def _epsilon(self, t: int) -> torch.Tensor:
         return epsilon_at(self.dqn_cfg, t)
 
-    def _agent_act(self, net, board, turn, legal, eps) -> torch.Tensor:
-        return dqn_act(net, board, turn, legal, eps, self.draws)
+    def _agent_act(self, net, board, turn, legal, eps,
+                   draws) -> torch.Tensor:
+        return dqn_act(net, board, turn, legal, eps, draws)
 
-    def _agent_train_batch(self, agent, replay) -> torch.Tensor:
+    def _agent_train_batch(self, agent, replay, draws) -> torch.Tensor:
         return dqn_train_batch(agent, replay, self.dqn_cfg, self.rb_cfg,
-                               self.draws)
+                               draws)
 
     @torch.no_grad()
     def _opponent_greedy(self, snap, board, turn, legal) -> torch.Tensor:
         """Greedy action of a frozen snapshot (the pool mode)."""
         return greedy_legal_action(snap(featurize3(board, turn)), legal)
 
-    @torch.no_grad()
     @torch.no_grad()
     def _eval_act(self, net, state, draws) -> torch.Tensor:
         """The epsilon-greedy evaluation action at ``test_epsilon``
@@ -250,7 +255,8 @@ class DQNTrainer:
 
         # 2. The mover acts: the learner epsilon-greedy, the opponent
         # scripted or a snapshot.
-        actions = self._agent_act(self.agent.net, board, turn, legal, eps)
+        actions = self._agent_act(self.agent.net, board, turn, legal, eps,
+                                  self.draws)
         if not self._selfplay:
             if self._use_pool:
                 opp = self._opponent_greedy(snap, board, turn, legal)
@@ -351,9 +357,8 @@ class DQNTrainer:
         t1 = time.perf_counter()
         n_up = self.updates_per_chunk()
         if self.agent.t >= self.dqn_cfg.initial_replay_size:
-            losses = torch.stack([self._agent_train_batch(self.agent,
-                                                          self.replay)
-                                  for _ in range(n_up)])
+            losses = torch.stack([self._agent_train_batch(
+                self.agent, self.replay, self.draws) for _ in range(n_up)])
             loss = losses.mean()
         else:
             loss, n_up = torch.zeros(()), 0
@@ -440,8 +445,8 @@ class DQNTrainer:
             print(f"[chunk {step}] {text}", flush=True)
 
     def save(self, path: str) -> None:
-        """The chunk count, the online params, optax's RMSprop state and
-        ``extra.t``, as JAX's trainer writes them."""
+        """The chunk count, the online params, the optimizer's state in
+        optax's tree and ``extra.t``, as JAX's trainer writes them."""
         net = self.agent.net
         to_tree = functools.partial(flax_tree, net)
         save_checkpoint(path, self.chunk_count, to_tree(),
@@ -450,7 +455,7 @@ class DQNTrainer:
 
     def load(self, path: str) -> None:
         """Resume from either trainer's checkpoint: params (online and
-        target), the RMSprop state, ``t`` and the chunk count."""
+        target), the optimizer's state, ``t`` and the chunk count."""
         step, params, opt_state, extra = load_checkpoint(path)
         net = self.agent.net
         tensors = tensors_from_flax(net, params)

@@ -529,7 +529,8 @@ def net_lookahead_policy(net: PolicyNet, cfg: EnvConfig, depth: int = 1,
 
 class PPOSelfPlayTrainer:
     """``device``: where the games, the net and the update run (``None``:
-    the current CUDA card; raises without one).  ``mesh`` is not ported."""
+    the current CUDA card; raises without one).  ``mesh`` raises (ROADMAP.md
+    queue 1 item 13)."""
 
     def __init__(self, env_cfg: EnvConfig = None,
                  ppo_cfg: PPOConfig = None,
@@ -541,7 +542,8 @@ class PPOSelfPlayTrainer:
         self.log_fn = log_fn
         if mesh is not None:
             raise NotImplementedError("multi-device training (mesh) is not "
-                                      "ported yet")
+                                      "ported yet: ROADMAP.md queue 1 "
+                                      "item 13")
         run = self.run_cfg
         # JAX's guards and wording (ppo_trainer.py:573-601, :710-726).
         if run.opponent_pool > 0 and run.pool_interval < 1:
@@ -601,7 +603,7 @@ class PPOSelfPlayTrainer:
                             else 0)
         self._split_fns = (make_split_fns(self.net) if run.recurrent
                            else None)
-        self.optimizer = make_optimizer(self.ppo_cfg, self.net.parameters())
+        self.optimizer = self._make_optimizer()
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.shuffle_generator = torch.Generator().manual_seed(seed)
         self.draws = Draws(self.generator)
@@ -614,6 +616,11 @@ class PPOSelfPlayTrainer:
         self.pool: list = []
         self._pool_rng = pyrandom.Random(seed)
         self.anchors = [self._load_anchor(path) for path in run.pool_anchors]
+
+    def _make_optimizer(self):
+        """The update's optimizer over the net's parameters (PPO's clipped,
+        scheduled Adam; a subclass's own)."""
+        return make_optimizer(self.ppo_cfg, self.net.parameters())
 
     def _frozen_copy(self) -> torch.nn.Module:
         """A frozen copy of the training policy (the net, or its
@@ -880,5 +887,5 @@ class PPOSelfPlayTrainer:
         update count at 0 (fine-tuning under another schedule)."""
         _, params, _, _ = load_checkpoint(path)
         load_flax_params(self.net, params)
-        self.optimizer = make_optimizer(self.ppo_cfg, self.net.parameters())
+        self.optimizer = self._make_optimizer()
         self.update_count = 0

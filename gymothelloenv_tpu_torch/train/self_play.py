@@ -128,6 +128,11 @@ class Draws:
         (``agents.replay.replay_sample_idx``)."""
         return torch.rand(n, generator=self.generator, device=device)
 
+    def normals(self, n: int, device) -> torch.Tensor:
+        """float32 (n,) standard normals: one noisy forward's factorized
+        noise (``agents.rainbow``), ACKTR's critic noise."""
+        return torch.randn(n, generator=self.generator, device=device)
+
 
 class InjectedDraws:
     """Given draws, consumed in call order: ``colors`` int8 (N,) tensors
@@ -135,19 +140,21 @@ class InjectedDraws:
     ``uniforms`` float32 (N,) tensors in (0, 1], one per sampled ply,
     ``rand_left`` (N,) counts (the first for ``selfplay_init``, then one
     per slot's reset), ``legal_index`` (N,) move indices, one per ply
-    with random openings, and ``replay_uniforms``, one tensor a replay
-    sample."""
+    with random openings, ``replay_uniforms``, one tensor a replay
+    sample, and ``normals``, one tensor a ``Draws.normals`` call."""
 
     def __init__(self, colors: Iterable[torch.Tensor],
                  uniforms: Iterable[torch.Tensor],
                  rand_left: Iterable[torch.Tensor] = (),
                  legal_index: Iterable[torch.Tensor] = (),
-                 replay_uniforms: Iterable[torch.Tensor] = ()):
+                 replay_uniforms: Iterable[torch.Tensor] = (),
+                 normals: Iterable[torch.Tensor] = ()):
         self._colors = iter(colors)
         self._uniforms = iter(uniforms)
         self._rand_left = iter(rand_left)
         self._legal_index = iter(legal_index)
         self._replay_uniforms = iter(replay_uniforms)
+        self._normals = iter(normals)
 
     def colors(self, n: int, device) -> torch.Tensor:
         return next(self._colors).to(device=device, dtype=torch.int8)
@@ -166,6 +173,13 @@ class InjectedDraws:
     def replay_uniforms(self, n: int, device) -> torch.Tensor:
         return next(self._replay_uniforms).to(device=device,
                                               dtype=torch.float32)
+
+    def normals(self, n: int, device) -> torch.Tensor:
+        out = next(self._normals).to(device=device, dtype=torch.float32)
+        if out.shape != (n,):
+            raise ValueError(f"injected normals {tuple(out.shape)} for a "
+                             f"draw of {n}")
+        return out
 
 
 def node_values(net: torch.nn.Module, nodes, reward: torch.Tensor,

@@ -46,22 +46,27 @@ from gymothelloenv_tpu_torch.train.dqn_trainer import (DQNRunConfig,
 from torch_port_helpers import one_torch_thread  # noqa: F401
 
 N, PLIES, INIT, CAP, TARGET_SYNC = 8, 64, 4, 2048, 200
+# The three-chunk witness: a ring that one chunk's transitions do not fill
+# and three do (it wraps in the third), and a target sync each chunk.
+WITNESS_CHUNKS, WITNESS_CAP, WITNESS_SYNC = 3, 1280, 400
 FIELDS = ("board", "turn", "action", "reward", "next_board", "next_turn",
           "done")
 
 
-def _configs(opponent, n_step, dueling, force_plane=False):
-    """Self-play on a uniform replay, or against greedy on PER; the
-    chunk's updates start at once (128 and 64 of them) and its
-    transitions cross a target-sync boundary."""
+def _configs(opponent, n_step, dueling, force_plane=False, per=None,
+             cap=CAP, sync=TARGET_SYNC):
+    """Self-play on a uniform replay, or against greedy on PER (``per``
+    overrides); the chunk's updates start at once (128 and 64 of them)
+    and its transitions cross a target-sync boundary."""
     kw = dict(n_step=n_step, dueling=dueling, double=True,
               initial_replay_size=0, batch_size=16,
-              target_update_interval=TARGET_SYNC,
+              target_update_interval=sync,
               initial_epsilon=0.5, final_epsilon=0.5)
     run = dict(num_envs=N, chunk_plies=PLIES, opponent=opponent,
                init_rand_steps=INIT, num_test_games=4, seed=3,
                force_plane=force_plane)
-    rb = dict(capacity=CAP, prioritized=opponent is not None)
+    rb = dict(capacity=cap, prioritized=(opponent is not None if per is None
+                                         else per))
     return ((JaxEnvConfig(num_disk_as_reward=True), jdqn.DQNConfig(**kw),
              jreplay.ReplayConfig(**rb), jtrain.DQNRunConfig(**run)),
             (EnvConfig(num_disk_as_reward=True), DQNConfig(**kw),
@@ -92,11 +97,11 @@ def _split(keys):
     return both[:, 0], both[:, 1]
 
 
-def _reset_draws(env_keys):
+def _reset_draws(env_keys, plies=PLIES):
     """Each ply's fresh colours and opening counts, rebuilt from the
     per-game keys as JAX's ply advances them."""
     colors, rand_left = [], []
-    for _ in range(PLIES):
+    for _ in range(plies):
         env_keys, _ = _split(env_keys)          # the opening move's key
         env_keys, sub = _split(env_keys)
         k_rand, k_color = _split(sub)
@@ -114,9 +119,12 @@ def _rank(legal, action):
 
 
 @functools.cache
-def _jax_chunk(opponent, n_step, dueling):
-    """One JAX chunk with its draws recorded: ``(trainer, draws, params
-    before the chunk, each update's sampled rows)``."""
+def _jax_chunk(opponent, n_step, dueling, chunks=1, per=None, cap=CAP,
+               sync=TARGET_SYNC):
+    """``chunks`` JAX chunks with their draws recorded: ``(trainer, draws,
+    params before the first chunk, each update's sampled rows)``; the
+    trainer's ``snapshots`` hold, after each chunk, its replay, params,
+    target params and how many updates had run."""
     moves = []
     real = JaxBitEngine.random_legal
 
@@ -144,22 +152,32 @@ def _jax_chunk(opponent, n_step, dueling):
     jdqn.replay_sample_idx = sample_idx
     jdqn.dqn_loss_grads = loss_grads
     try:
-        jcfgs, _ = _configs(opponent, n_step, dueling)
+        jcfgs, _ = _configs(opponent, n_step, dueling, per=per, cap=cap,
+                            sync=sync)
         tr = _Recording(*jcfgs, log_fn=lambda *a: None)
-        tr.acts, tr.updates, tr.losses = [], [], []
+        tr.acts, tr.updates, tr.losses, tr.snapshots = [], [], [], []
         tr.ensure_initialized()
         params0 = jax.tree.map(np.array, tr.agent.params)
         roll0 = jax.tree.map(np.array, tr.roll)
-        key = jax.random.PRNGKey(17)
-        tr.agent, tr.replay, tr.roll, _ = tr._train_chunk(
-            tr.agent, tr.replay, tr.roll, key)
-        jax.effects_barrier()
+        for c in range(chunks):
+            key = jax.random.PRNGKey(17)
+            if c:
+                key = jax.random.fold_in(key, c)
+            tr.agent, tr.replay, tr.roll, _ = tr._train_chunk(
+                tr.agent, tr.replay, tr.roll, key)
+            jax.effects_barrier()
+            tr.snapshots.append(dict(
+                replay=jax.tree.map(np.array, tr.replay),
+                params=jax.tree.map(np.array, tr.agent.params),
+                target=jax.tree.map(np.array, tr.agent.target_params),
+                t=int(tr.agent.t), updates=len(tr.updates)))
     finally:
         JaxBitEngine.random_legal = real
         jdqn.replay_sample_idx = real_sample
         jdqn.dqn_loss_grads = real_loss_grads
-    assert len(tr.acts) == len(moves) == PLIES
-    colors, rand_left = _reset_draws(jnp.asarray(roll0.env_keys))
+    assert len(tr.acts) == len(moves) == PLIES * chunks
+    colors, rand_left = _reset_draws(jnp.asarray(roll0.env_keys),
+                                     PLIES * chunks)
     legal_index = []
     for (lg, _, a), (w, m) in zip(tr.acts, moves):
         legal_index += [_rank(lg, a), _legal_rank(w, m)]
@@ -181,8 +199,8 @@ def _legal_rank(legal_pair, action):
 
 
 def _port(opponent, n_step, dueling, draws=None, params=None,
-          force_plane=False):
-    _, cfgs = _configs(opponent, n_step, dueling, force_plane)
+          force_plane=False, **kw):
+    _, cfgs = _configs(opponent, n_step, dueling, force_plane, **kw)
     tr = DQNTrainer(*cfgs, log_fn=lambda *a: None, device="cpu")
     if draws is not None:
         tr.draws = draws
@@ -285,6 +303,76 @@ def test_chunk_emissions_equal_jax(opponent, n_step, dueling, monkeypatch):
                                    float(jtr.replay.max_priority),
                                    rtol=0, atol=5e-4)
         assert sum(moved) <= len(jidx)      # at most one row an update
+
+
+def test_three_chunks_wrap_and_sync_equal_jax(monkeypatch):
+    """Job 60's kind (self-play, n-step 3, double, dueling, PER) over three
+    chunks: the ring (``WITNESS_CAP`` rows) wraps in the third and the
+    target syncs after each.  After every chunk: the replay rows, their
+    write position and size exactly; each of the chunk's updates, on the
+    rows JAX sampled, its loss to rtol 1e-4 and TD errors to 1e-4; the
+    online and target params per leaf within 1e-4 of the leaf's largest
+    delta since the start plus 1e-8 (the one-chunk self-play bound); the
+    target equal to the online net; the priorities to 5e-4."""
+    kw = dict(per=True, cap=WITNESS_CAP, sync=WITNESS_SYNC)
+    jtr, draws, params0, jidx = _jax_chunk(None, 3, True, WITNESS_CHUNKS,
+                                           **kw)
+    taken, losses = iter(jidx), []
+    real_loss_grads = dqn_mod.dqn_loss_grads
+
+    def loss_grads(state, cfg, batch):
+        loss, td = real_loss_grads(state, cfg, batch)
+        losses.append((float(loss), td.numpy().copy()))
+        return loss, td
+    monkeypatch.setattr(dqn_mod, "replay_sample_idx",
+                        lambda rb, cfg, u: next(taken).to(torch.int64))
+    monkeypatch.setattr(dqn_mod, "dqn_loss_grads", loss_grads)
+    tr = _port(None, 3, True, draws, params0, **kw)
+    cls = type(tr.agent.net)
+
+    def leaves(params):
+        return _leaves(load_flax_params(cls(num_actions=64, board_size=8),
+                                        params))
+    start, t_old, wrapped = leaves(params0), 0, False
+    for c, snap in enumerate(jtr.snapshots):
+        tr.train_chunk()
+        rb, jrb = tr.replay, snap["replay"]
+        size = int(jrb.size)
+        assert int(rb.size) == size and tr.agent.t == snap["t"], c
+        assert int(rb.write_pos) == int(jrb.write_pos), c
+        wrapped |= snap["t"] > WITNESS_CAP
+        want = jreplay.replay_gather(jrb, jnp.arange(size))
+        got = _rows(rb, size)
+        for f, w in zip(FIELDS, want):
+            np.testing.assert_array_equal(got[f], np.asarray(w),
+                                          err_msg=f"{f} chunk {c}")
+        first = 0 if c == 0 else jtr.snapshots[c - 1]["updates"]
+        assert len(losses) == snap["updates"] > first, c
+        for i in range(first, snap["updates"]):
+            (loss, td), (jloss, jtd) = losses[i], jtr.losses[i]
+            assert loss == pytest.approx(jloss, rel=1e-4), (c, i)
+            np.testing.assert_allclose(td, jtd, rtol=0, atol=1e-4,
+                                       err_msg=f"chunk {c} update {i}")
+        assert snap["t"] // WITNESS_SYNC > t_old // WITNESS_SYNC
+        t_old = snap["t"]
+        for name, net, jparams in (("online", tr.agent.net, snap["params"]),
+                                   ("target", tr.agent.target,
+                                    snap["target"])):
+            port = _leaves(net)
+            for k, w in leaves(jparams).items():
+                wd = (w - start[k]).numpy()
+                gd = (port[k] - start[k]).numpy()
+                assert (np.abs(gd - wd).max()
+                        <= 1e-4 * np.abs(wd).max() + 1e-8), (c, name, k)
+        for a, b in zip(tr.agent.net.parameters(),
+                        tr.agent.target.parameters()):
+            assert torch.equal(a, b), c        # the target synced
+        np.testing.assert_allclose(rb.priority[:size].numpy(),
+                                   np.asarray(jrb.priority[:size]),
+                                   rtol=0, atol=5e-4, err_msg=str(c))
+    assert wrapped and int(tr.replay.size) == WITNESS_CAP
+    with pytest.raises(StopIteration):     # as many updates as JAX's
+        next(taken)
 
 
 def test_force_plane_collection_equals_bitboard():

@@ -59,3 +59,19 @@ def test_training_slice_modules_are_checked():
                 "cli/tournament.py", "cli/eval_checkpoint.py",
                 "scripts/ladder.py", "envs/vec_wrappers.py"):
         assert rel in checked, rel
+
+
+_SLICE_10 = ("agents/rainbow.py", "train/rainbow_trainer.py",
+             "cli/rainbow_train.py", "agents/a2c.py", "train/a2c_trainer.py",
+             "cli/a2c_train.py", "agents/kfac.py", "train/acktr_trainer.py",
+             "cli/acktr_train.py")
+
+
+@pytest.mark.parametrize("rel", _SLICE_10)
+def test_rainbow_a2c_acktr_modules_are_checked_and_import(rel):
+    """Rainbow's, A2C's and ACKTR's modules are among the files above and
+    import without a card (no kernel is built at import)."""
+    import importlib
+    assert rel in {os.path.relpath(p, PORT) for p in _port_files()}
+    module = "gymothelloenv_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module)
