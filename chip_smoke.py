@@ -111,13 +111,26 @@ set to 0 just before it and read just after:
   * cli/acktr_train.py at JAX job 08b's configuration (--net conv, N 1024,
     T 16, entropy 0.05, kl-clip 0.001) for 12 updates through an
     eigendecomposition refresh, one update card vs CPU on a refresh step,
-    and 3 updates of --net mlp ([acktr]).
+    and 3 updates of --net mlp ([acktr]);
+  * cli/run_self_play.py (simple PPO) at its defaults (N 64, T 32) for 4
+    updates and its final evaluations, then one simple_ppo_update card vs
+    CPU ([simple_ppo]);
+  * the port's expert script (64 maximin-2 games on the card) and
+    cli/gail_train.py on its file (N 256, T 64, 20 BC steps, 2 updates),
+    then one discriminator step and one full GAIL update card vs CPU
+    ([gail]);
+  * the compat layer: 4 seeded cli/run.py games through OthelloEnv,
+    card = CPU transcript, one B1 launch an env ply; the ms of a
+    SimpleOthelloEnv ply; a .pth of the vendored Policy written by
+    torch.save, imported and played by cli/eval_checkpoint.py against
+    greedy ([compat]).
 
 It reads two files outside gymothelloenv_tpu_torch/, the committed
 data/selfplay/ppo_wide2_4k.msgpack (the teacher's warm start) and
 data/selfplay/rainbow_pool_600.msgpack; its other nets are seeded inits
 and the checkpoints it reads are the ones it wrote, in a temporary
-directory.  It exits non-zero on any failure, without a
+directory (the expert file and the .pth of [gail] and [compat] too).
+It exits non-zero on any failure, without a
 CUDA card, or when run outside a checkout of the repository.
 
 K1 is held against its plain version at every lane count (1, 2, 4, 8) on
@@ -361,6 +374,35 @@ A2C_ENVS, A2C_STEPS, A2C_UPDATES, A2C_STEP_RTOL = 1024, 16, 5, 1e-3
 # mlp.
 ACKTR_ENVS, ACKTR_STEPS, ACKTR_UPDATES, ACKTR_MLP_UPDATES = 1024, 16, 12, 3
 ACKTR_STEP_RTOL = 1e-3
+# [simple_ppo]: cli/run_self_play.py at its defaults (N 64, T 32, batch 256,
+# 5 epochs, lr 1e-3), SP_UPDATES updates and the final 200-game
+# evaluations; then one simple_ppo_update card vs CPU on a fresh rollout
+# (the CPU replaying the card's epoch permutations and ReLU masks), each
+# parameter's delta to SP_REF_RTOL of the leaf's largest.  The compared
+# update runs Adam at eps REF_EPS on both sides: at the default 1e-8 an
+# entry whose gradient is near 0 steps by up to lr * sign(g), so rounding
+# in the card's and the CPU's sums moves single entries by ~lr (the CPU
+# tests measured 8.5e-3 of a leaf's largest delta after one step between
+# XLA and torch); at 1e-3 the step is near linear in the gradient.
+SP_ENVS, SP_STEPS, SP_UPDATES, SP_REF_RTOL = 64, 32, 4, 1e-4
+REF_EPS = 1e-3
+# [gail]: the port's expert script (GAIL_EXPERT_GAMES maximin-2 games on the
+# card, openings unrecorded), then cli/gail_train.py (N 256, T 64, its
+# defaults) with GAIL_BC BC steps and GAIL_UPDATES updates on it; one
+# discriminator step and one full update (collection, the discriminator
+# steps, the relabel, the PPO update) card vs CPU, the CPU replaying the
+# card's draws, ReLU masks and shuffle words, every optimizer at eps
+# REF_EPS, each delta to GAIL_REF_RTOL of its leaf's largest.
+GAIL_EXPERT_GAMES, GAIL_BC, GAIL_ENVS, GAIL_STEPS = 64, 20, 256, 64
+GAIL_UPDATES, GAIL_REF_RTOL = 2, 1e-4
+# [compat]: COMPAT_GAMES seeded cli/run.py games (maximin-1 against the
+# seeded random policy through OthelloEnv, 4 random opening plies) on the
+# card and on the CPU, the same transcript; COMPAT_PLIES timed plies of
+# one SimpleOthelloEnv; a .pth of the vendored Policy written by
+# torch.save, imported (forward to COMPAT_FWD_ATOL) and played by
+# cli/eval_checkpoint.py against greedy over COMPAT_EVAL_GAMES games.
+COMPAT_GAMES, COMPAT_PLIES, COMPAT_EVAL_GAMES = 4, 60, 200
+COMPAT_FWD_ATOL = 1e-5
 DEVICE_TYPE = "cuda"
 
 
@@ -664,7 +706,23 @@ def main():
         say(f"[{label}] wall seconds {wall[label]:.2f}")
     say("[rainbow, a2c and acktr slice] wall seconds of its phases: "
         + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
-    later = {**slice7, **slice8, **slice9, **slice10}
+    # 32. simple_ppo, 33. gail, 34. compat ---------------------------------
+    slice11, wall = {}, {}
+    for label, phase in (
+            ("simple_ppo", lambda: _simple_ppo_phase(torch, tb, legal_mask,
+                                                     step, dev)),
+            ("gail", lambda: _gail_phase(torch, tb, legal_mask, step, dev)),
+            ("compat", lambda: _compat_phase(torch, tb, legal_mask, step,
+                                             dev))):
+        t0 = time.perf_counter()
+        slice11[label] = phase()
+        wall[label] = time.perf_counter() - t0
+        say(f"[{label}] wall seconds {wall[label]:.2f}")
+    say("[simple_ppo, gail and compat slice] wall seconds of its phases: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    # The expert script's games and searches are a path of their own.
+    slice11["gail_expert"] = slice11["gail"].pop("expert_counts")
+    later = {**slice7, **slice8, **slice9, **slice10, **slice11}
 
     # 11. kernels line --------------------------------------------------------
     rows = [
@@ -729,6 +787,13 @@ def main():
              a2c={k: slice10["a2c"][k] for k in (
                  "collect_seconds", "update_seconds", "plies")},
              acktr={k: slice10["acktr"][k] for k in ("runs", "plies")},
+             simple_ppo={k: slice11["simple_ppo"][k] for k in (
+                 "collect_seconds", "update_seconds", "plies")},
+             gail={k: slice11["gail"][k] for k in (
+                 "collect_seconds", "disc_seconds", "relabel_seconds",
+                 "update_seconds", "plies", "expert_launches")},
+             compat={k: slice11["compat"][k] for k in (
+                 "ms_a_ply", "plies", "eval_launches")},
              **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
@@ -4051,6 +4116,467 @@ def _acktr_phase(torch, tb, legal_mask, step, dev):
         f"({worst}; rtol {ACKTR_STEP_RTOL}); {sum(flips)} Fisher actions "
         f"and {sum(relu_flips)} ReLU units the CPU's own arithmetic would "
         "change")
+    return out
+
+
+def _to_device(obj, device):
+    """A copy of ``obj`` with every tensor moved to ``device``, through
+    dataclasses, lists, tuples and dicts."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, torch.nn.Module):
+        return obj
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to_device(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(x, device) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, device) for k, v in obj.items()}
+    return obj
+
+
+class _RecordedDraws:
+    """A draws object that keeps every tensor it hands out, by kind, for
+    the CPU to replay (``injected``)."""
+
+    KINDS = ("colors", "uniforms", "rand_left", "legal_index",
+             "replay_uniforms", "normals", "row_indices", "mix_uniforms")
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.log = {k: [] for k in self.KINDS}
+
+    def __getattr__(self, name):
+        fn = getattr(self.inner, name)
+        if name not in self.KINDS:
+            return fn
+
+        def recorded(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.log[name].append(out)
+            return out
+        return recorded
+
+    def injected(self, device):
+        from gymothelloenv_tpu_torch.train.self_play import InjectedDraws
+        return InjectedDraws(**{k: [t.to(device) for t in v]
+                                for k, v in self.log.items()})
+
+
+def _delta_rel(what, names, before, card, cpu_before, cpu, rtol):
+    """Per leaf: the card's delta less the CPU's, beyond one float32
+    spacing of the parameter (each side's ``p + u`` rounds to its own
+    spacing), over the CPU's largest delta; requires each within
+    ``rtol`` and returns ``(worst leaf, reading)``.  A leaf the CPU's
+    update leaves unchanged must stay unchanged on the card."""
+    rel = {}
+    for k, b, c, bc, w in zip(names, before, card, cpu_before, cpu):
+        d_card, d_cpu = (c - b).cpu(), w - bc
+        big = float(d_cpu.abs().max())
+        if big == 0:
+            require(not bool(d_card.any()), f"[{what}] {k} moved on the "
+                    "card only")
+            continue
+        excess = (d_card - d_cpu).abs() - 2.0 ** -22 * w.abs()
+        rel[k] = max(float(excess.max()), 0.0) / big
+    worst = max(rel, key=rel.get)
+    require(rel[worst] <= rtol, f"[{what}] card vs CPU: the delta of "
+            f"{worst} differs by {rel[worst]:.3e} of its largest > {rtol}")
+    return worst, rel[worst]
+
+
+def _params(net):
+    return [p.detach().clone() for p in net.parameters()]
+
+
+def _simple_ppo_phase(torch, tb, legal_mask, step, dev):
+    """cli.run_self_play at its defaults (N SP_ENVS, T SP_STEPS) for
+    SP_UPDATES updates and the final 200-game evaluations: one B1 launch a
+    BitEngine ply, no plain ply, no K2, finite losses; then one
+    simple_ppo_update card vs CPU on a fresh rollout of the trained net
+    (Adam at REF_EPS on both sides; the CPU replaying the card's epoch
+    permutations and ReLU masks), each delta to SP_REF_RTOL of its leaf's
+    largest."""
+    from gymothelloenv_tpu_torch.agents import simple_ppo
+    from gymothelloenv_tpu_torch.agents.ppo import Adam
+    from gymothelloenv_tpu_torch.cli import run_self_play
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    from gymothelloenv_tpu_torch.train.self_play import collect_rollout
+    say(f"[simple_ppo] start: run_self_play --num-envs {SP_ENVS} "
+        f"--num-steps {SP_STEPS} --num-updates {SP_UPDATES}; one update "
+        "card vs CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        _zero_counts(legal_mask, step)
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
+            trainer = run_self_play.main([
+                "--num-envs", str(SP_ENVS), "--num-steps", str(SP_STEPS),
+                "--num-updates", str(SP_UPDATES), "--log-every", "1",
+                "--test-interval", str(10 ** 9), "--num-test-games",
+                str(TRAIN_TEST_GAMES), "--seed", str(SEED), "--log-dir",
+                tmp, "--device", DEVICE_TYPE])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(legal_mask, step)
+        records = _read_metrics(tmp)
+    require(len(records) == SP_UPDATES
+            and all(math.isfinite(m["loss"]) for m in records),
+            "[simple_ppo] an update was skipped or a loss is not finite")
+    require(counts["bit_step_launches"] == calls["step_where"] > 0
+            and counts["reset_launches"] == calls["reset_where"] > 0,
+            f"[simple_ppo] {counts} for {calls}")
+    _require_no_k2(counts["k2_launches"], "simple_ppo")
+    require(not plain_calls, f"[simple_ppo] ran a plain ply: "
+            f"{plain_calls[:3]}")
+
+    # One update card vs CPU on a fresh rollout of the trained net.
+    cfg = trainer.ppo_cfg
+    _, rollout, _ = collect_rollout(trainer.net, trainer.sp_state,
+                                    trainer.env_cfg, SP_STEPS, trainer.draws,
+                                    logp_mode="full")
+    gen = torch.Generator().manual_seed(SEED + 21)
+    perms = [torch.randperm(SP_ENVS * SP_STEPS, generator=gen)
+             for _ in range(cfg.k_epochs)]
+    net_cpu = copy.deepcopy(trainer.net).to("cpu")
+    names = [k for k, _ in trainer.net.named_parameters()]
+    before, before_cpu = _params(trainer.net), _params(net_cpu)
+    masks, flips = [], []
+    t0 = time.perf_counter()
+    with _relu_masks(torch, masks, True, flips):
+        loss = simple_ppo.simple_ppo_update(
+            trainer.net, Adam(trainer.net.parameters(), cfg.lr,
+                              eps=REF_EPS), rollout, cfg, perms)
+        torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    with _relu_masks(torch, masks, False, flips):
+        loss_cpu = simple_ppo.simple_ppo_update(
+            net_cpu, Adam(net_cpu.parameters(), cfg.lr, eps=REF_EPS),
+            _to_device(rollout, "cpu"), cfg, perms)
+    worst, rel = _delta_rel("simple_ppo", names, before,
+                            _params(trainer.net), before_cpu,
+                            _params(net_cpu), SP_REF_RTOL)
+    _check_metrics({"loss": float(loss)}, {"loss": float(loss_cpu)})
+    out = dict(counts, wall_seconds=wall, plies=calls["step_where"],
+               collect_seconds=[m["collect_seconds"] for m in records],
+               update_seconds=[m["update_seconds"] for m in records],
+               transitions_per_sec=[m["transitions_per_sec"]
+                                    for m in records],
+               update=dict(delta_rel=rel, worst_leaf=worst,
+                           relu_flips=sum(flips), seconds=ref_s))
+    say(f"[simple_ppo] ok: {SP_UPDATES} updates and the final evaluations "
+        f"in {wall:.2f} s; collect " + ", ".join(
+            f"{x:.3f}" for x in out["collect_seconds"]) + " s, update "
+        + ", ".join(f"{x:.3f}" for x in out["update_seconds"])
+        + f" s; {calls['step_where']} plies, {counts['bit_step_launches']} "
+        f"B1 launches, {counts['reset_launches']} reset_where, no K2; one "
+        f"update card vs CPU: the delta per leaf {rel:.2e} of its largest "
+        f"({worst}; rtol {SP_REF_RTOL}), {sum(flips)} ReLU units the CPU's "
+        "own arithmetic would change")
+    return out
+
+
+def _gail_phase(torch, tb, legal_mask, step, dev):
+    """The port's expert script (GAIL_EXPERT_GAMES maximin-2 games, B1 in
+    every step and every search level), then cli.gail_train at N
+    GAIL_ENVS, T GAIL_STEPS with GAIL_BC BC steps and GAIL_UPDATES updates
+    and its evaluations: one B1 launch a BitEngine ply, no plain ply, no
+    K2, finite losses; then one discriminator step and one full update
+    card vs CPU (module docstring)."""
+    from gymothelloenv_tpu_torch.agents import gail
+    from gymothelloenv_tpu_torch.agents.ppo import Adam, make_optimizer
+    from gymothelloenv_tpu_torch.cli import gail_train
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    from gymothelloenv_tpu_torch.scripts import make_expert_dataset
+    from gymothelloenv_tpu_torch.train.gail_trainer import GAILPPOTrainer
+    say(f"[gail] start: make_expert_dataset --games {GAIL_EXPERT_GAMES} "
+        f"(maximin-2), gail_train --num-envs {GAIL_ENVS} --num-steps "
+        f"{GAIL_STEPS} --bc-updates {GAIL_BC} --num-updates {GAIL_UPDATES}; "
+        "one discriminator step and one update card vs CPU")
+    with tempfile.TemporaryDirectory() as tmp:
+        expert = os.path.join(tmp, "expert.npz")
+        _zero_counts(legal_mask, step)
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
+            make_expert_dataset.main([
+                "--games", str(GAIL_EXPERT_GAMES), "--search-depth", "2",
+                "--seed", str(SEED), "--out", expert, "--device",
+                DEVICE_TYPE])
+            torch.cuda.synchronize()
+        expert_s = time.perf_counter() - t0
+        ex_counts = _counts(legal_mask, step)
+        require(ex_counts["bit_step_launches"] > calls["step_where"] > 0
+                and not plain_calls, f"[gail] the expert script: "
+                f"{ex_counts} for {calls}, plain {plain_calls[:3]}")
+        _require_no_k2(ex_counts["k2_launches"], "gail expert")
+        _zero_counts(legal_mask, step)
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls:
+            trainer = gail_train.main([
+                "--expert", expert, "--num-envs", str(GAIL_ENVS),
+                "--num-steps", str(GAIL_STEPS), "--num-updates",
+                str(GAIL_UPDATES), "--bc-updates", str(GAIL_BC),
+                "--num-trajectories", str(GAIL_EXPERT_GAMES), "--log-every",
+                "1", "--test-interval", str(10 ** 9), "--num-test-games",
+                str(TRAIN_TEST_GAMES), "--seed", str(SEED), "--log-dir", tmp,
+                "--device", DEVICE_TYPE])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts(legal_mask, step)
+        records = [m for m in _read_metrics(tmp) if "disc_loss" in m]
+        twin = GAILPPOTrainer(expert_path=expert, gail_run=trainer.gail_run,
+                              env_cfg=trainer.env_cfg,
+                              ppo_cfg=trainer.ppo_cfg,
+                              run_cfg=trainer.run_cfg, device="cpu")
+    require(len(records) == GAIL_UPDATES and all(
+        math.isfinite(m[k]) for m in records
+        for k in ("disc_loss", "gail_reward", "value_loss", "action_loss")),
+        "[gail] an update was skipped or a loss is not finite")
+    require(counts["bit_step_launches"] == calls["step_where"] > 0
+            and counts["reset_launches"] == calls["reset_where"] > 0,
+            f"[gail] {counts} for {calls}")
+    _require_no_k2(counts["k2_launches"], "gail")
+    require(not plain_calls, f"[gail] ran a plain ply: {plain_calls[:3]}")
+
+    # One discriminator step card vs CPU from the trained discriminator.
+    stack = trainer.sample_expert()
+    g_state = trainer.gail_state
+    names = [k for k, _ in g_state.net.named_parameters()]
+    alpha = torch.rand(stack.shape[1], generator=torch.Generator(
+        dev).manual_seed(SEED + 22), device=dev)
+
+    def disc_step(state, device):
+        state = dataclasses.replace(
+            state, net=copy.deepcopy(state.net).to(device))
+        state.optimizer = Adam(state.net.parameters(), 1e-3, eps=REF_EPS)
+        from gymothelloenv_tpu_torch.train.self_play import InjectedDraws
+        before = _params(state.net)
+        gail.gail_discriminator_update(
+            state, trainer.gail_cfg, stack[0].to(device),
+            stack[1].to(device),
+            InjectedDraws((), (), mix_uniforms=[alpha.to(device)]))
+        return before, _params(state.net)
+    b_card, a_card = disc_step(g_state, dev)
+    b_cpu, a_cpu = disc_step(g_state, "cpu")
+    d_worst, d_rel = _delta_rel("gail disc", names, b_card, a_card, b_cpu,
+                                a_cpu, GAIL_REF_RTOL)
+
+    # One full update card vs CPU from the trained state.
+    twin.net.load_state_dict(trainer.net.state_dict())
+    twin.gail_state = dataclasses.replace(
+        _to_device(g_state, "cpu"), net=copy.deepcopy(g_state.net).cpu())
+    twin.sp_state = _to_device(trainer.sp_state, "cpu")
+    twin._last_done = trainer._last_done.cpu()
+    ref_cfg = dataclasses.replace(trainer.ppo_cfg, adam_eps=REF_EPS)
+    for t in (trainer, twin):
+        t.optimizer = make_optimizer(ref_cfg, t.net.parameters())
+        t.gail_state.optimizer = Adam(t.gail_state.net.parameters(), 1e-3,
+                                      eps=REF_EPS)
+    rec = _RecordedDraws(trainer.draws)
+    trainer.draws = rec
+    words = torch.randint(0, 2 ** 32, (trainer.ppo_cfg.ppo_epochs, 4),
+                          generator=torch.Generator().manual_seed(SEED + 23))
+    pnames = [k for k, _ in trainer.net.named_parameters()]
+    before = (_params(trainer.net), _params(trainer.gail_state.net))
+    before_cpu = (_params(twin.net), _params(twin.gail_state.net))
+    masks, flips = [], []
+    with _relu_masks(torch, masks, True, flips):
+        m_card = trainer.gail_update(stack, words)
+    twin.draws = rec.injected("cpu")
+    with _relu_masks(torch, masks, False, flips):
+        m_cpu = twin.gail_update(stack.cpu(), words)
+    require(torch.equal(trainer.sp_state.pending.action.cpu(),
+                        twin.sp_state.pending.action), "[gail] the card's "
+            "and the CPU's collections took other actions")
+    p_worst, p_rel = _delta_rel("gail policy", pnames, before[0],
+                                _params(trainer.net), before_cpu[0],
+                                _params(twin.net), GAIL_REF_RTOL)
+    u_worst, u_rel = _delta_rel("gail update disc", names, before[1],
+                                _params(trainer.gail_state.net),
+                                before_cpu[1], _params(twin.gail_state.net),
+                                GAIL_REF_RTOL)
+    # The return accumulator (one per game) over its largest magnitude.
+    r_err = float((trainer.gail_state.returns.cpu()
+                   - twin.gail_state.returns).abs().max()
+                  / twin.gail_state.returns.abs().max())
+    require(r_err <= GAIL_REF_RTOL, f"[gail] the return accumulator card vs "
+            f"CPU: {r_err:.3e} of its largest")
+    _check_metrics({k: float(m_card[k]) for k in ("disc_loss", "gail_reward",
+                                                 "value_loss")},
+                   {k: float(m_cpu[k]) for k in ("disc_loss", "gail_reward",
+                                                "value_loss")})
+    out = dict(counts, wall_seconds=wall, plies=calls["step_where"],
+               expert_seconds=expert_s, expert_counts=ex_counts,
+               expert_launches=ex_counts["bit_step_launches"],
+               expert_rows=len(trainer.expert),
+               **{k: [m[k] for m in records] for k in (
+                   "collect_seconds", "disc_seconds", "relabel_seconds",
+                   "update_seconds", "transitions_per_sec")},
+               disc_step=dict(delta_rel=d_rel, worst_leaf=d_worst),
+               update=dict(policy_rel=p_rel, policy_worst=p_worst,
+                           disc_rel=u_rel, disc_worst=u_worst,
+                           returns_rel=r_err, relu_flips=sum(flips)))
+    share = [(m["disc_seconds"] + m["relabel_seconds"])
+             / sum(m[k] for k in ("collect_seconds", "disc_seconds",
+                                  "relabel_seconds", "update_seconds"))
+             for m in records]
+    out["disc_relabel_share"] = share
+    say(f"[gail] ok: expert data {len(trainer.expert)} rows from "
+        f"{GAIL_EXPERT_GAMES} games in {expert_s:.2f} s "
+        f"({ex_counts['bit_step_launches']} B1 launches); BC, "
+        f"{GAIL_UPDATES} updates and the evaluations in {wall:.2f} s; "
+        "collect " + ", ".join(f"{x:.3f}" for x in out["collect_seconds"])
+        + " s, discriminator " + ", ".join(
+            f"{x:.3f}" for x in out["disc_seconds"]) + " s, relabel "
+        + ", ".join(f"{x:.3f}" for x in out["relabel_seconds"])
+        + " s, PPO update " + ", ".join(
+            f"{x:.3f}" for x in out["update_seconds"]) + " s (discriminator "
+        "and relabel " + ", ".join(f"{100 * x:.1f}%" for x in share)
+        + f" of an update); {calls['step_where']} plies, "
+        f"{counts['bit_step_launches']} B1 launches, no K2; card vs CPU: a "
+        f"discriminator step {d_rel:.2e} ({d_worst}), a full update's "
+        f"policy {p_rel:.2e} ({p_worst}) and discriminator {u_rel:.2e} "
+        f"({u_worst}) of each leaf's largest delta, the return accumulator "
+        f"{r_err:.2e} of its largest (rtol {GAIL_REF_RTOL}); {sum(flips)} "
+        "ReLU units the "
+        "CPU's own arithmetic would change")
+    return out
+
+
+def _compat_phase(torch, tb, legal_mask, step, dev):
+    """The reference-API layer on the card: COMPAT_GAMES seeded cli.run
+    games (maximin-1 against the seeded random policy) through OthelloEnv,
+    one B1 launch an env ply, the same W/D/L and transcript as on the
+    CPU; ms a SimpleOthelloEnv ply; a .pth of the vendored Policy's
+    architecture written by torch.save, imported on the card (its forward
+    to COMPAT_FWD_ATOL of the module's) and played by
+    cli.eval_checkpoint against greedy."""
+    import io
+    import numpy as np
+    from torch import nn
+    from gymothelloenv_tpu_torch.cli import eval_checkpoint, run
+    from gymothelloenv_tpu_torch.compat import envs
+    from gymothelloenv_tpu_torch.compat.torch_import import (
+        detect_and_import, load_torch_checkpoint)
+    from gymothelloenv_tpu_torch.core.engine import BitEngine
+    say(f"[compat] start: {COMPAT_GAMES} seeded cli.run games (maximin-1 "
+        "vs rand) on the card and the CPU; a SimpleOthelloEnv game's plies; "
+        f"a .pth of the vendored Policy vs greedy over {COMPAT_EVAL_GAMES} "
+        "games")
+    plies = {"n": 0}
+    real_step = envs.OthelloBaseEnv.step
+
+    def counted(self, action):
+        plies["n"] += 1
+        return real_step(self, action)
+
+    def games(device):
+        np.random.seed(SEED)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            wdl = run.play(-1, "maximin", "rand", num_rounds=COMPAT_GAMES,
+                           protagonist_search_depth=1, rand_seed=SEED,
+                           env_init_rand_steps=4, render=False,
+                           device=device)
+        return wdl, buf.getvalue()
+    envs.OthelloBaseEnv.step = counted
+    try:
+        _zero_counts(legal_mask, step)
+        t0 = time.perf_counter()
+        with _no_plain(tb) as plain_calls:
+            wdl, text = games(dev)
+            torch.cuda.synchronize()
+        games_s = time.perf_counter() - t0
+        counts = _counts(legal_mask, step)
+        env_plies = plies["n"]
+    finally:
+        envs.OthelloBaseEnv.step = real_step
+    wdl_cpu, text_cpu = games("cpu")
+    require(wdl == wdl_cpu and text == text_cpu and sum(wdl) == COMPAT_GAMES,
+            f"[compat] card {wdl} vs CPU {wdl_cpu}")
+    require(counts["bit_step_launches"] == env_plies > 0 and not plain_calls,
+            f"[compat] {counts} for {env_plies} env plies, plain "
+            f"{plain_calls[:3]}")
+    _require_no_k2(counts["k2_launches"], "compat")
+    env = envs.SimpleOthelloEnv(mute=True, device=dev)
+    env.reset()
+    rng = np.random.RandomState(SEED)
+    ply_ms = []
+    while len(ply_ms) < COMPAT_PLIES:
+        if env.env.terminated:
+            env.reset()
+        moves = env.possible_moves
+        t0 = time.perf_counter()
+        env.step(moves[rng.randint(len(moves))])
+        ply_ms.append(1e3 * (time.perf_counter() - t0))
+
+    class RefPolicy(nn.Module):
+        """The vendored Policy (CNNBase + critic_linear + dist.linear,
+        model.py:288-314), as a reference checkpoint holds it."""
+
+        def __init__(self):
+            super().__init__()
+            self.base = nn.Module()
+            self.base.main = nn.Sequential(
+                nn.Conv2d(4, 32, 3, stride=2, padding=1), nn.ReLU(),
+                nn.Conv2d(32, 64, 2), nn.ReLU(), nn.Conv2d(64, 64, 2),
+                nn.ReLU(), nn.Flatten(), nn.Linear(256, 512), nn.ReLU())
+            self.base.critic_linear = nn.Linear(512, 1)
+            self.dist = nn.Module()
+            self.dist.linear = nn.Linear(512, 64)
+
+        def forward(self, x):
+            h = self.base.main(x)
+            return self.dist.linear(h), self.base.critic_linear(h)[:, 0]
+    torch.manual_seed(SEED)
+    ref = RefPolicy().to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ref_policy.pth")
+        torch.save(ref.state_dict(), path)
+        kind, net = detect_and_import(load_torch_checkpoint(path),
+                                      device=dev)
+        x = (torch.rand(256, 4, 8, 8, generator=torch.Generator(
+            dev).manual_seed(SEED), device=dev) < 0.4).float()
+        with torch.no_grad():
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(net(x), ref(x)))
+        require(kind == "policy" and err <= COMPAT_FWD_ATOL,
+                f"[compat] the imported {kind} net vs its module: {err:.3e}")
+        _zero_counts(legal_mask, step)
+        with _no_plain(tb) as plain_calls, _count_plies(BitEngine) as calls, \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            w, d, l = eval_checkpoint.main([
+                "--load", path, "--opponent", "greedy", "--games",
+                str(COMPAT_EVAL_GAMES), "--seed", str(SEED), "--device",
+                DEVICE_TYPE])
+            torch.cuda.synchronize()
+        eval_counts = _counts(legal_mask, step)
+    require(w + d + l == COMPAT_EVAL_GAMES and "architecture: policy"
+            in out.getvalue(), "[compat] the .pth evaluation")
+    require(eval_counts["bit_step_launches"] == calls["step_where"] > 0
+            and not plain_calls, f"[compat] eval {eval_counts} for {calls}")
+    _require_no_k2(eval_counts["k2_launches"], "compat eval")
+    total = dict(k2_launches=counts["k2_launches"]
+                 + eval_counts["k2_launches"],
+                 bit_step_launches=counts["bit_step_launches"]
+                 + eval_counts["bit_step_launches"],
+                 reset_launches=counts["reset_launches"]
+                 + eval_counts["reset_launches"])
+    out = dict(total, plies=env_plies, games_seconds=games_s, wdl=wdl,
+               ms_a_ply=statistics.median(ply_ms[1:]),
+               ms_a_ply_range=(min(ply_ms[1:]), max(ply_ms[1:])),
+               forward_err=err, eval_wdl=(w, d, l),
+               eval_launches=eval_counts["bit_step_launches"])
+    say(f"[compat] ok: {COMPAT_GAMES} cli.run games W/D/L {wdl} in "
+        f"{games_s:.2f} s, {env_plies} env plies = "
+        f"{counts['bit_step_launches']} B1 launches, card = CPU transcript; "
+        f"a SimpleOthelloEnv ply {out['ms_a_ply']:.3f} ms (median of "
+        f"{COMPAT_PLIES - 1}, {out['ms_a_ply_range'][0]:.3f}-"
+        f"{out['ms_a_ply_range'][1]:.3f}); the .pth policy's forward "
+        f"{err:.2e} from its module, vs greedy {w}/{d}/{l} with "
+        f"{eval_counts['bit_step_launches']} B1 launches, no K2")
     return out
 
 

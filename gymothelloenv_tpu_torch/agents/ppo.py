@@ -212,6 +212,41 @@ def load_adam_state(adam: torch.optim.Adam, params, node, from_tree) -> None:
                          "exp_avg_sq": v.to(p).contiguous()}
 
 
+class Adam:
+    """optax ``adam(lr, b1, b2, eps)`` on ``.grad`` (``torch.optim.Adam``,
+    whose eps sits outside the root as optax's does), with the DQN
+    optimizer's interface: ``zero_grad``, ``step`` and the state in
+    optax's tree, ``{"0": {count, mu, nu}, "1": {}}``.  Rainbow's
+    optimizer, simple PPO's, GAIL's discriminator's and the BC
+    warm-start's."""
+
+    def __init__(self, params, lr: float, eps: float = 1e-8,
+                 betas: tuple = (0.9, 0.999)):
+        self.params = [p for p in params if p.requires_grad]
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=tuple(betas),
+                                     eps=eps)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self) -> None:
+        self.adam.step()
+
+    def to_optax_state(self, to_tree) -> dict:
+        return {"0": adam_optax_state(self.adam, self.params, to_tree),
+                "1": {}}
+
+    def load_optax_state(self, state, from_tree) -> None:
+        """The inverse of ``to_optax_state``; another layout raises
+        ``ValueError``."""
+        if (not isinstance(state, dict) or set(state) != {"0", "1"}
+                or not isinstance(state["0"], dict)
+                or set(state["0"]) != {"count", "mu", "nu"} or state["1"]):
+            raise ValueError("optimizer state is not the layout of optax "
+                             "adam ({'0': {count, mu, nu}, '1': {}})")
+        load_adam_state(self.adam, self.params, state["0"], from_tree)
+
+
 def make_optimizer(cfg: PPOConfig, params) -> Optimizer:
     return Optimizer(params, cfg)
 

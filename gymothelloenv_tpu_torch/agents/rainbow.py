@@ -34,8 +34,7 @@ from torch import nn
 from gymothelloenv_tpu_torch.agents.dqn import (DQNState, featurize3,
                                                 frozen_copy,
                                                 greedy_legal_action)
-from gymothelloenv_tpu_torch.agents.ppo import (adam_optax_state,
-                                                load_adam_state)
+from gymothelloenv_tpu_torch.agents.ppo import Adam
 from gymothelloenv_tpu_torch.agents.replay import (Replay, ReplayConfig,
                                                    replay_gather,
                                                    replay_sample_idx,
@@ -174,37 +173,6 @@ class RainbowNet(nn.Module):
         val = self.val(val, parts[3]).reshape(
             val.shape[:-1] + (1, self.num_atoms))
         return val + adv - adv.mean(dim=-2, keepdim=True)
-
-
-class Adam:
-    """optax ``adam(lr, eps)`` on ``.grad`` (``torch.optim.Adam``), with
-    the DQN optimizer's interface: ``zero_grad``, ``step`` and the state
-    in optax's tree, ``{"0": {count, mu, nu}, "1": {}}``."""
-
-    def __init__(self, params, lr: float, eps: float):
-        self.params = [p for p in params if p.requires_grad]
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=eps)
-
-    def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
-
-    def step(self) -> None:
-        self.adam.step()
-
-    def to_optax_state(self, to_tree) -> dict:
-        return {"0": adam_optax_state(self.adam, self.params, to_tree),
-                "1": {}}
-
-    def load_optax_state(self, state, from_tree) -> None:
-        """The inverse of ``to_optax_state``; another layout raises
-        ``ValueError``."""
-        if (not isinstance(state, dict) or set(state) != {"0", "1"}
-                or not isinstance(state["0"], dict)
-                or set(state["0"]) != {"count", "mu", "nu"} or state["1"]):
-            raise ValueError("optimizer state is not the layout of optax "
-                             "adam ({'0': {count, mu, nu}, '1': {}})")
-        load_adam_state(self.adam, self.params, state["0"], from_tree)
 
 
 def make_rainbow_net(cfg: RainbowConfig, seed: int = 0,

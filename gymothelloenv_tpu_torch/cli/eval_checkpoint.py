@@ -1,10 +1,13 @@
-"""Evaluate a saved PPO policy checkpoint — the port of
-``cli/eval_checkpoint.py`` for msgpack checkpoints, feed-forward,
-recurrent (GRU) or frame-stacked: the checkpoint plays a scripted opponent
-(``rand | greedy | maximin-<k>``) or another checkpoint (``ckpt:<path>``
-or ``*.msgpack``, head to head), half the games on each colour, with
-``--init-rand-steps`` random opening plies.  It samples from its policy,
-or with ``--lookahead`` plays the value-lookahead search
+"""Evaluate a saved policy checkpoint — the port of
+``cli/eval_checkpoint.py``: a msgpack checkpoint, feed-forward, recurrent
+(GRU) or frame-stacked, or a reference torch ``.pth``/``.pt`` (the
+vendored ``Policy``, the standalone ``ActorCritic``, ``DQN`` or
+``Dueling_DQN``, converted by ``compat.torch_import``; a DQN plays greedy
+over its legal Q values).  The checkpoint plays a scripted opponent
+(``rand | greedy | maximin-<k>``) or another checkpoint (``ckpt:<path>``,
+``*.msgpack`` or ``*.pth``, head to head), half the games on each
+colour, with ``--init-rand-steps`` random opening plies.  It samples
+from its policy, or with ``--lookahead`` plays the value-lookahead search
 (``train/ppo_trainer.net_lookahead_policy``: ``--lookahead-depth`` 1, 2
 or 3, the last a beam of ``--beam-k``); ``--opp-lookahead-depth`` gives a
 checkpoint opponent the search too.  A recurrent or frame-stacked side
@@ -52,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--load", type=str, required=True)
     parser.add_argument("--opponent", type=str, default="greedy",
                         help="rand | greedy | maximin-<k> | ckpt:<path> / "
-                             "*.msgpack (head-to-head vs another "
+                             "*.msgpack / *.pth (head-to-head vs another "
                              "checkpoint)")
     parser.add_argument("--games", type=int, default=200,
                         help="total games; half as black, half as white")

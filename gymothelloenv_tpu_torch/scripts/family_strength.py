@@ -1,5 +1,6 @@
 """The training-strength checks of the port's teacher-vs-student, DQN,
-Rainbow, A2C and ACKTR trainers against the JAX runs they rebuild, each
+Rainbow, A2C, ACKTR and GAIL trainers against the JAX runs they rebuild
+(and a reading of simple PPO, which has no JAX record), each
 evaluation held to JAX's figure by the ladder's two-proportion test at 1%
 (``scripts/ladder.py``).
 
@@ -42,6 +43,27 @@ evaluation held to JAX's figure by the ladder's two-proportion test at 1%
   (``data/logs/queue/10_a2c.log``) are not in the repo, so its seed is
   not known; the CLI's default, 0, is used.
 
+- ``--family gail``: JAX job 12's first run (``data/queue/done/
+  12_gail_clean.job``: ``--expert data/expert_maximin2_256_clean.npz
+  --num-trajectories 256 --bc-updates 2000 --num-updates 3000 --seed
+  41``, N 256, T 64, lr 1e-5) on an expert file the port's script makes
+  first (``scripts/make_expert_dataset.py --games 256``: maximin-2,
+  openings unrecorded, seed 0, written to ``--expert``; JAX's file held
+  3449 rows at subsample 4).  Two readings of ``GAIL_GAMES`` games
+  against each opponent: after the BC warm-start, against JAX's
+  ``BC warm-start eval: {'greedy': 0.48, 'rand': 0.575}``, and after
+  the 3000 updates, against its ``final eval: {'greedy': 0.45, 'rand':
+  0.555}`` (``data/logs/queue/12_gail_clean.log``, each 200 games).
+- ``--family gail_only``: job 12's second run, the same without BC,
+  against its ``final eval: {'greedy': 0.44, 'rand': 0.55}``.
+- ``--family simple_ppo``: ``cli/run_self_play.py`` at its defaults (N
+  64, T 32) for ``--chunks`` updates (40), then ``GAIL_GAMES`` games
+  against each opponent.  The JAX package has no strength record of
+  simple PPO, so its rows carry no test.  The run is short because the
+  reference algorithm diverges at these defaults: JAX's CLI on the CPU
+  reaches a NaN loss at updates 55-111 (seeds 0-2), the port's near
+  update 50, and a NaN policy then loses every game.
+
 Readings before a cut are taken by training to each reading and
 evaluating there (no evaluation in between).
 
@@ -51,11 +73,13 @@ evaluating there (no evaluation in between).
         [--chunks 60] [--seed 4] [--num-envs 1024] [--device cuda]
     python -m gymothelloenv_tpu_torch.scripts.family_strength \
         --family rainbow|acktr|a2c [--chunks N] [--seed S]
+    python -m gymothelloenv_tpu_torch.scripts.family_strength \
+        --family gail|gail_only|simple_ppo [--chunks N] [--expert PATH]
 
-Prints the trainer's lines, then one JSON line an opponent: wins of
-games, JAX's, z, p, whether p is at or above ``ladder.ALPHA``, and the
-training wall seconds.  Seeded JAX and torch streams never agree, so the
-check is statistical.  On a card it first prints the card's name and power
+Prints the trainer's lines, then one JSON line an opponent and reading:
+wins of games, JAX's, z, p, whether p is at or above ``ladder.ALPHA``,
+and the training wall seconds.  Seeded JAX and torch streams never
+agree, so the check is statistical.  On a card it first prints the card's name and power
 limit (nvidia-smi).
 """
 
@@ -73,6 +97,7 @@ from gymothelloenv_tpu_torch.agents.dqn import DQNConfig
 from gymothelloenv_tpu_torch.agents.kfac import ACKTRConfig
 from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
 from gymothelloenv_tpu_torch.agents.rainbow import RainbowConfig
+from gymothelloenv_tpu_torch.agents.simple_ppo import SimplePPOConfig
 from gymothelloenv_tpu_torch.agents.replay import ReplayConfig
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.scripts.ladder import ALPHA, two_proportion
@@ -80,8 +105,12 @@ from gymothelloenv_tpu_torch.train.a2c_trainer import A2CSelfPlayTrainer
 from gymothelloenv_tpu_torch.train.acktr_trainer import ACKTRSelfPlayTrainer
 from gymothelloenv_tpu_torch.train.dqn_trainer import (DQNRunConfig,
                                                        DQNTrainer)
+from gymothelloenv_tpu_torch.train.gail_trainer import (GAILPPOTrainer,
+                                                        GAILRunConfig)
 from gymothelloenv_tpu_torch.train.ppo_trainer import SelfPlayConfig
 from gymothelloenv_tpu_torch.train.rainbow_trainer import RainbowTrainer
+from gymothelloenv_tpu_torch.train.simple_ppo_trainer import (
+    SimplePPOSelfPlayTrainer, SimpleSelfPlayConfig)
 from gymothelloenv_tpu_torch.train.teacher_student import (
     TeacherStudentConfig, TeacherStudentTrainer)
 
@@ -93,17 +122,30 @@ JAX = {"ts": {"greedy": (130, 200), "rand": (164, 200)},
        "dqn": {"greedy": (162, 200), "rand": (162, 200)},
        "rainbow": {"greedy": (651, 1000), "rand": (757, 1000)},
        "acktr": {"greedy": (491, 600), "rand": (498, 600)},
-       "a2c": {"greedy": (157, 200), "rand": (151, 200)}}
+       "a2c": {"greedy": (157, 200), "rand": (151, 200)},
+       "gail": {"greedy": (90, 200), "rand": (111, 200)},
+       "gail_only": {"greedy": (88, 200), "rand": (110, 200)},
+       "simple_ppo": {"greedy": None, "rand": None}}
+# JAX's BC warm-start reading of job 12's first run.
+JAX_BC = {"greedy": (96, 200), "rand": (115, 200)}
 SOURCE = {"ts": "data/logs/queue/52_ts_strength.log:14 (chunk 200)",
           "dqn": "data/logs/queue/60_dqn_after.log (final eval)",
           "rainbow": "data/logs/queue/07_rainbow_pool.log (chunks 200-300)",
           "acktr": "data/logs/queue/08b_acktr_confirm.log (updates 200, "
                    "300, 400)",
           "a2c": "RESULTS.md, round-2 per-trainer runs, A2C row (final "
-                 "eval; the job file and log are not in the repo)"}
+                 "eval; the job file and log are not in the repo)",
+          "gail": "data/logs/queue/12_gail_clean.log, first run (BC "
+                  "warm-start eval and final eval)",
+          "gail_only": "data/logs/queue/12_gail_clean.log, second run "
+                       "(final eval)",
+          "simple_ppo": "no JAX record"}
 # Defaults an argument: (chunks or updates, seed).
 DEFAULTS = {"ts": (200, 5), "dqn": (60, 4), "rainbow": (300, 21),
-            "acktr": (400, 32), "a2c": (8000, 0)}
+            "acktr": (400, 32), "a2c": (8000, 0), "gail": (3000, 41),
+            "gail_only": (3000, 41), "simple_ppo": (40, 0)}
+GAIL_GAMES = 1000       # games an opponent of a GAIL or simple-PPO reading
+EXPERT = "runs/expert_maximin2_256.npz"
 READINGS = {"rainbow": (200, 225, 250, 275, 300), "acktr": (200, 300, 400)}
 
 
@@ -202,6 +244,66 @@ def _a2c(args, log):
     return trainer.evaluate()
 
 
+def _make_expert(args) -> None:
+    """JAX's expert file for job 12, unless ``args.expert`` exists: 256
+    maximin-2 games, openings unrecorded, seed 0."""
+    import os
+
+    from gymothelloenv_tpu_torch.scripts import make_expert_dataset
+    if os.path.exists(args.expert):
+        return
+    os.makedirs(os.path.dirname(os.path.abspath(args.expert)), exist_ok=True)
+    make_expert_dataset.main(["--games", "256",
+                              "--search-depth", "2", "--seed", "0",
+                              "--device", args.device, "--out",
+                              args.expert])
+
+
+def _gail(args, log, bc_updates=None):
+    """Job 12's run (``args.bc_updates`` BC steps, then ``args.chunks``
+    GAIL updates); ``{"bc": counts, "final": counts}`` (``"bc"`` only with
+    BC)."""
+    bc_updates = args.bc_updates if bc_updates is None else bc_updates
+    _make_expert(args)
+    trainer = GAILPPOTrainer(
+        expert_path=args.expert,
+        gail_run=GAILRunConfig(num_trajectories=256, subsample_frequency=4),
+        env_cfg=EnvConfig(num_disk_as_reward=True),
+        ppo_cfg=PPOConfig(lr=1e-5, num_updates=args.chunks),
+        run_cfg=SelfPlayConfig(num_envs=args.num_envs, num_steps=64,
+                               test_interval=NEVER,
+                               num_test_games=GAIL_GAMES, seed=args.seed),
+        log_fn=log, device=args.device)
+    print(f"expert rows: {len(trainer.expert)} (JAX's file: 3449)",
+          flush=True)
+    out = {}
+    if bc_updates:
+        trainer.bc_warmstart(bc_updates, log_every=200)
+        out["bc"] = _counts(trainer.evaluate())
+    trainer.train(args.chunks, log_every=200)
+    out["final"] = _counts(trainer.evaluate())
+    return out
+
+
+def _simple_ppo(args, log):
+    """``cli/run_self_play.py``'s defaults for ``args.chunks`` updates."""
+    trainer = SimplePPOSelfPlayTrainer(
+        env_cfg=EnvConfig(num_disk_as_reward=True),
+        ppo_cfg=SimplePPOConfig(),
+        run_cfg=SimpleSelfPlayConfig(num_envs=args.num_envs,
+                                     test_interval=NEVER,
+                                     num_test_games=GAIL_GAMES,
+                                     seed=args.seed),
+        log_fn=log, device=args.device)
+    trainer.train(args.chunks, log_every=100)
+    return {"final": _counts(trainer.evaluate())}
+
+
+def _counts(rates: dict) -> dict:
+    """Win rates over ``GAIL_GAMES`` -> ``{opp: (wins, games)}``."""
+    return {k: (round(v * GAIL_GAMES), GAIL_GAMES) for k, v in rates.items()}
+
+
 def main(argv=None) -> list:
     parser = argparse.ArgumentParser(
         prog="python -m gymothelloenv_tpu_torch.scripts.family_strength")
@@ -209,13 +311,26 @@ def main(argv=None) -> list:
     parser.add_argument("--chunks", type=int, default=None,
                         help="chunks or updates: ts 200 (the cut), dqn 60 "
                              "(the whole job), rainbow 300 (the cut), "
-                             "acktr 400 (the cut), a2c 8000 (the run)")
+                             "acktr 400 (the cut), a2c 8000 (the run), "
+                             "gail/gail_only 3000 (the run), simple_ppo "
+                             "40")
     parser.add_argument("--seed", type=int, default=None,
                         help="the JAX job's: 5 (ts), 4 (dqn), 21 "
-                             "(rainbow), 32 (acktr); a2c: 0")
-    parser.add_argument("--num-envs", type=int, default=1024)
+                             "(rainbow), 32 (acktr), 41 (gail, "
+                             "gail_only); a2c, simple_ppo: 0")
+    parser.add_argument("--num-envs", type=int, default=None,
+                        help="1024; gail/gail_only 256, simple_ppo 64")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--expert", type=str, default=EXPERT,
+                        help="gail/gail_only: the expert npz, made first "
+                             "with JAX's recipe when missing")
+    parser.add_argument("--bc-updates", type=int, default=2000,
+                        help="gail: the BC warm-start's steps (job 12's "
+                             "2000)")
     args = parser.parse_args(argv)
+    if args.num_envs is None:
+        args.num_envs = {"gail": 256, "gail_only": 256,
+                         "simple_ppo": 64}.get(args.family, 1024)
     chunks, seed = DEFAULTS[args.family]
     args.chunks = chunks if args.chunks is None else args.chunks
     args.seed = seed if args.seed is None else args.seed
@@ -233,24 +348,31 @@ def main(argv=None) -> list:
 
     t0 = time.time()
     run = {"ts": _ts, "dqn": _dqn, "rainbow": _rainbow, "acktr": _acktr,
-           "a2c": _a2c}[args.family]
+           "a2c": _a2c, "gail": _gail,
+           "gail_only": lambda a, lg: _gail(a, lg, bc_updates=0),
+           "simple_ppo": _simple_ppo}[args.family]
     counts = run(args, log)
     seconds = time.time() - t0
+    readings = counts if "final" in counts else {"final": counts}
     rows = []
-    for opp, (jax_wins, jax_games) in JAX[args.family].items():
-        if isinstance(counts[opp], tuple):
-            wins, games = counts[opp]
-        else:                  # one evaluation's win rate
-            wins, games = round(counts[opp] * TEST_GAMES), TEST_GAMES
-        z, p = two_proportion(wins, games, jax_wins, jax_games)
-        rows.append(dict(family=args.family, seed=args.seed,
-                         chunks=args.chunks, num_envs=args.num_envs,
-                         opponent=opp, wins=wins, games=games,
-                         win_rate=wins / games, jax_wins=jax_wins,
-                         jax_games=jax_games, source=SOURCE[args.family],
-                         z=z, p=p, agrees=p >= ALPHA,
-                         seconds=seconds))
-        print(json.dumps(rows[-1]), flush=True)
+    for reading, got in readings.items():
+        want = JAX_BC if reading == "bc" else JAX[args.family]
+        for opp, jax_count in want.items():
+            if isinstance(got[opp], tuple):
+                wins, games = got[opp]
+            else:                  # one evaluation's win rate
+                wins, games = round(got[opp] * TEST_GAMES), TEST_GAMES
+            row = dict(family=args.family, reading=reading, seed=args.seed,
+                       chunks=args.chunks, num_envs=args.num_envs,
+                       opponent=opp, wins=wins, games=games,
+                       win_rate=wins / games, source=SOURCE[args.family],
+                       seconds=seconds)
+            if jax_count is not None:
+                z, p = two_proportion(wins, games, *jax_count)
+                row.update(jax_wins=jax_count[0], jax_games=jax_count[1],
+                           z=z, p=p, agrees=p >= ALPHA)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
     return rows
 
 

@@ -154,21 +154,31 @@ def make_split_fns(net: PolicyNet) -> tuple:
 
 def load_eval_policy(path: str, cfg: EnvConfig = EnvConfig(), device=None):
     """Load a policy checkpoint for evaluation (JAX ppo_trainer.py:
-    334-392): ``width_mult``, ``hidden_size``, a GRU core and the frame
-    stack come from the stored shapes.  Returns ``(policy,
+    334-392): a msgpack checkpoint, whose ``width_mult``, ``hidden_size``,
+    GRU core and frame stack come from the stored shapes, or a reference
+    torch ``.pth``/``.pt`` (``compat.torch_import``).  Returns ``(policy,
     description)``, the description as JAX writes it (``"step 2500,
-    width_mult=2, hidden=512, recurrent"``): a ``PolicyNet`` (a recurrent
-    one takes ``(obs, h, mask)``), or for a frame-stacked net its
-    ``FrameStackCell``.  A policy that threads state has ``recurrent``
-    True and its state width in ``hidden_size``.  ``cfg``: the board the
-    net plays; a checkpoint whose logits are for another board raises
-    ``ValueError``.  Sets float32 numerics (``use_float32``: TF32 off), so
-    every evaluation path, the stateful one too, convolves in float32."""
-    if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            "reference torch checkpoints (.pth/.pt) are not ported yet "
-            "(ROADMAP.md queue 1 item 12, the compat layer)")
+    width_mult=2, hidden=512, recurrent"``, ``"torch checkpoint
+    (architecture: dqn)"``): a ``PolicyNet`` (a recurrent one takes
+    ``(obs, h, mask)``), for a frame-stacked net its ``FrameStackCell``,
+    and for a torch file the imported net as a policy ``net(obs) ->
+    (logits, value)`` (``compat.torch_import.imported_policy``).  A
+    policy that threads state has ``recurrent`` True and its state width
+    in ``hidden_size``.  ``cfg``: the board the net plays; a checkpoint
+    whose logits are for another board raises ``ValueError``.  Sets
+    float32 numerics (``use_float32``: TF32 off), so every evaluation
+    path, the stateful one too, convolves in float32."""
     use_float32()
+    if path.endswith((".pth", ".pt")):
+        from gymothelloenv_tpu_torch.compat.torch_import import (
+            detect_and_import, imported_policy, load_torch_checkpoint)
+        kind, net = detect_and_import(load_torch_checkpoint(path),
+                                      device=device)
+        if cfg.board_size != 8:
+            raise ValueError(f"{path}: the reference nets play the 8x8 "
+                             f"board, not board_size={cfg.board_size}")
+        return (imported_policy(kind, net),
+                f"torch checkpoint (architecture: {kind})")
     step, raw, _, _ = load_checkpoint(path)
     arch = architecture(raw)
     if arch["board_size"] != cfg.board_size:

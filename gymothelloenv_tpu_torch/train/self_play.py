@@ -133,6 +133,17 @@ class Draws:
         noise (``agents.rainbow``), ACKTR's critic noise."""
         return torch.randn(n, generator=self.generator, device=device)
 
+    def row_indices(self, n: int, high: int, device) -> torch.Tensor:
+        """int64 (n,) uniform in ``[0, high)``, with replacement: GAIL's
+        policy rows for a discriminator step."""
+        return torch.randint(0, high, (n,), generator=self.generator,
+                             device=device)
+
+    def mix_uniforms(self, n: int, device) -> torch.Tensor:
+        """float32 (n,) in [0, 1): GAIL's mixup weights of a gradient
+        penalty."""
+        return torch.rand(n, generator=self.generator, device=device)
+
 
 class InjectedDraws:
     """Given draws, consumed in call order: ``colors`` int8 (N,) tensors
@@ -141,20 +152,25 @@ class InjectedDraws:
     ``rand_left`` (N,) counts (the first for ``selfplay_init``, then one
     per slot's reset), ``legal_index`` (N,) move indices, one per ply
     with random openings, ``replay_uniforms``, one tensor a replay
-    sample, and ``normals``, one tensor a ``Draws.normals`` call."""
+    sample, ``normals``, one tensor a ``Draws.normals`` call, and
+    ``row_indices``/``mix_uniforms``, one tensor a call of each."""
 
     def __init__(self, colors: Iterable[torch.Tensor],
                  uniforms: Iterable[torch.Tensor],
                  rand_left: Iterable[torch.Tensor] = (),
                  legal_index: Iterable[torch.Tensor] = (),
                  replay_uniforms: Iterable[torch.Tensor] = (),
-                 normals: Iterable[torch.Tensor] = ()):
+                 normals: Iterable[torch.Tensor] = (),
+                 row_indices: Iterable[torch.Tensor] = (),
+                 mix_uniforms: Iterable[torch.Tensor] = ()):
         self._colors = iter(colors)
         self._uniforms = iter(uniforms)
         self._rand_left = iter(rand_left)
         self._legal_index = iter(legal_index)
         self._replay_uniforms = iter(replay_uniforms)
         self._normals = iter(normals)
+        self._row_indices = iter(row_indices)
+        self._mix_uniforms = iter(mix_uniforms)
 
     def colors(self, n: int, device) -> torch.Tensor:
         return next(self._colors).to(device=device, dtype=torch.int8)
@@ -180,6 +196,13 @@ class InjectedDraws:
             raise ValueError(f"injected normals {tuple(out.shape)} for a "
                              f"draw of {n}")
         return out
+
+    def row_indices(self, n: int, high: int, device) -> torch.Tensor:
+        return next(self._row_indices).to(device=device, dtype=torch.int64)
+
+    def mix_uniforms(self, n: int, device) -> torch.Tensor:
+        return next(self._mix_uniforms).to(device=device,
+                                           dtype=torch.float32)
 
 
 def node_values(net: torch.nn.Module, nodes, reward: torch.Tensor,

@@ -153,11 +153,25 @@ def test_load_eval_policy_matches_jax():
 
 
 def test_load_eval_policy_refusals(tmp_path):
-    """``.pth``/``.pt`` stay refused (queue 1 item 12); the committed
-    recurrent checkpoint and a frame-stack-2 one now load, with JAX's
-    descriptions, as a recurrent net and a frame-stack cell."""
-    with pytest.raises(NotImplementedError, match="item 12"):
-        load_eval_policy(str(tmp_path / "ref.pth"), device="cpu")
+    """``.pth``/``.pt`` files load (the compat layer's import): a reference
+    ``Dueling_DQN`` state dict saved with ``torch.save`` comes back as a
+    policy over the 4-plane input with JAX's description, and a missing
+    file raises; the committed recurrent checkpoint and a frame-stack-2
+    one load, with JAX's descriptions, as a recurrent net and a
+    frame-stack cell."""
+    from test_torch_import import TorchDuelingDQN
+    torch.manual_seed(0)
+    for suffix in (".pth", ".pt"):
+        path = str(tmp_path / f"ref{suffix}")
+        torch.save(TorchDuelingDQN().state_dict(), path)
+        policy, desc = load_eval_policy(path, device="cpu")
+        assert desc == jtrainer.load_eval_policy(path, JaxEnvConfig())[2] \
+            == "torch checkpoint (architecture: dueling_dqn)"
+        with torch.no_grad():
+            logits, value = policy(torch.zeros(2, 4, 8, 8))
+        assert logits.shape == (2, 64) and not bool(value.any())
+    with pytest.raises(FileNotFoundError):
+        load_eval_policy(str(tmp_path / "missing.pth"), device="cpu")
     if os.path.isfile(RECURRENT):
         net, desc = load_eval_policy(RECURRENT, device="cpu")
         assert desc == "step 2000, recurrent"

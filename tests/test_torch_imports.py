@@ -75,3 +75,23 @@ def test_rainbow_a2c_acktr_modules_are_checked_and_import(rel):
     assert rel in {os.path.relpath(p, PORT) for p in _port_files()}
     module = "gymothelloenv_tpu_torch." + rel[:-3].replace("/", ".")
     importlib.import_module(module)
+
+
+_SLICE_11 = ("agents/simple_ppo.py", "train/simple_ppo_trainer.py",
+             "cli/run_self_play.py", "agents/gail.py",
+             "train/gail_trainer.py", "cli/gail_train.py",
+             "scripts/make_expert_dataset.py", "compat/__init__.py",
+             "compat/featurize.py", "compat/envs.py", "compat/policies.py",
+             "compat/torch_import.py", "compat/agents.py", "cli/run.py",
+             "cli/run_2agent.py")
+
+
+@pytest.mark.parametrize("rel", _SLICE_11)
+def test_simple_ppo_gail_compat_modules_are_checked_and_import(rel):
+    """Simple PPO's, GAIL's and the compat layer's modules are among the
+    files above and import without a card (no kernel is built at
+    import)."""
+    import importlib
+    assert rel in {os.path.relpath(p, PORT) for p in _port_files()}
+    module = "gymothelloenv_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module.removesuffix(".__init__"))
