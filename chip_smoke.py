@@ -123,10 +123,28 @@ set to 0 just before it and read just after:
     card = CPU transcript, one B1 launch an env ply; the ms of a
     SimpleOthelloEnv ply; a .pth of the vendored Policy written by
     torch.save, imported and played by cli/eval_checkpoint.py against
-    greedy ([compat]).
+    greedy ([compat]);
+  * the remaining CLIs and utilities: cli/replay.py of the committed
+    wide2 net (deterministic) against maximin-2, card = CPU page and one
+    B1 launch a ply; one cli/enjoy.py episode against greedy with
+    --live-html, card = CPU transcript; cli/sweep.py; a
+    utils/profiling.trace of one wide2 PPO update (N 1024, T 64) whose
+    summarize_trace names B1 and the update's kernels; cli/visualize.py
+    load_run on its metrics ([cli]);
+  * data-parallel training (parallel/): wide2 PPO (N 1024, T 64, 2
+    updates) at world 1 under nccl against the single-process trainer
+    (itself run twice by default and twice with cuDNN deterministic, to
+    read the card's run-to-run drift), then on two gloo ranks sharing the
+    card against that; one update of the small plain, time-limited and
+    recurrent PPO, A2C, ACKTR, GAIL and teacher-student world 1 vs 2
+    (parallel/dryrun.py); two planted faults that the gate must fail;
+    rollout_chunk_sharded at N 4096 over the two ranks against the plain
+    rollout on each slice ([dp]; the ranks are child processes, and one
+    that fails fails the phase).
 
 It reads two files outside gymothelloenv_tpu_torch/, the committed
-data/selfplay/ppo_wide2_4k.msgpack (the teacher's warm start) and
+data/selfplay/ppo_wide2_4k.msgpack (the teacher's warm start, and the
+net of [cli]) and
 data/selfplay/rainbow_pool_600.msgpack; its other nets are seeded inits
 and the checkpoints it reads are the ones it wrote, in a temporary
 directory (the expert file and the .pth of [gail] and [compat] too).
@@ -403,6 +421,40 @@ GAIL_UPDATES, GAIL_REF_RTOL = 2, 1e-4
 # cli/eval_checkpoint.py against greedy over COMPAT_EVAL_GAMES games.
 COMPAT_GAMES, COMPAT_PLIES, COMPAT_EVAL_GAMES = 4, 60, 200
 COMPAT_FWD_ATOL = 1e-5
+# [cli]: cli/replay.py of the committed wide2 net (deterministic) against
+# maximin-2, card = CPU page and one B1 launch a ply; one cli/enjoy.py
+# episode of it against greedy with --live-html, card = CPU transcript;
+# cli/sweep.py --format script; a utils/profiling.trace of one PPO
+# update at wide2 (N CLI_TRACE_ENVS, T CLI_TRACE_STEPS) after a warm-up
+# update, whose summarize_trace names B1 and the update's kernels; and
+# cli/visualize.load_run on the traced run's metrics.jsonl.
+CLI_TRACE_ENVS, CLI_TRACE_STEPS = 1024, 64
+# [dp]: (a) DP_UPDATES wide2 PPO updates (N DP_ENVS, T DP_STEPS, the
+# dryrun's PPO recipe: lr 3e-4, entropy 0.01) at world 1 under nccl
+# against the mesh=None trainer; (b) the same on two gloo ranks sharing
+# the card, each with N / 2 games, against (a); (c) one update of each of
+# the dryrun's small families world 1 vs 2 (DP_FAMILIES); (d) rollout_chunk_sharded at N
+# DP_ROLLOUT_N over two ranks, each rank = the plain rollout on its slice
+# at seed + rank * 7919, the counts summed.  Parameters agree per leaf to
+# DP_PARAM_RTOL of the leaf's largest change (the card's reductions run
+# in other orders; the PPO update's ReLU and clip kinks amplify that), and
+# to JAX's gate (rtol 5e-3, atol 1e-5) where the size is the dryrun's.
+# (a) also runs the mesh=None trainer twice, and twice more with cuDNN's
+# deterministic algorithms, to tell the card's run-to-run drift from the
+# mesh path's own arithmetic (on the CPU the world-1 mesh path equals
+# mesh=None to the last bits).  The cluster then plants each of DP_FAULTS
+# into agents/ppo.py (_planted) and runs the wide and small PPO again:
+# the gate must fail each of them at both sizes.  DP_PARAM_RTOL lies
+# between the sound readings, the size of the card's run-to-run drift,
+# and the planted faults' readings, which are larger by two orders
+# (PERF.md section 6 has both).
+DP_ENVS, DP_STEPS, DP_UPDATES = 1024, 64, 2
+DP_PARAM_RTOL = 0.05
+DP_FAMILIES = ("ppo", "ppo_time_limited", "ppo_recurrent", "a2c", "acktr",
+               "gail", "teacher_student")
+DP_FAULTS = ("unreduced_grads", "local_moments")
+DP_ROLLOUT_N, DP_ROLLOUT_STEPS = 4096, 64
+DP_TIMEOUT_S = 300
 DEVICE_TYPE = "cuda"
 
 
@@ -722,7 +774,20 @@ def main():
         + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
     # The expert script's games and searches are a path of their own.
     slice11["gail_expert"] = slice11["gail"].pop("expert_counts")
-    later = {**slice7, **slice8, **slice9, **slice10, **slice11}
+    # 35. cli, 36. dp -------------------------------------------------------
+    slice12, wall = {}, {}
+    for label, phase in (
+            ("cli", lambda: _cli_phase(torch, tb, legal_mask, step, dev)),
+            ("dp", lambda: _dp_phase(torch, tb, ro, legal_mask, step,
+                                     dev))):
+        t0 = time.perf_counter()
+        slice12[label] = phase()
+        wall[label] = time.perf_counter() - t0
+        say(f"[{label}] wall seconds {wall[label]:.2f}")
+    say("[cli and dp slice] wall seconds of its phases: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
+    dp_rollout = slice12["dp"].pop("rollout")
+    later = {**slice7, **slice8, **slice9, **slice10, **slice11, **slice12}
 
     # 11. kernels line --------------------------------------------------------
     rows = [
@@ -794,6 +859,10 @@ def main():
                  "update_seconds", "plies", "expert_launches")},
              compat={k: slice11["compat"][k] for k in (
                  "ms_a_ply", "plies", "eval_launches")},
+             cli={k: slice12["cli"][k] for k in (
+                 "replay_plies", "enjoy_plies", "trace_kernels")},
+             dp={k: slice12["dp"][k] for k in (
+                 "world1_seconds", "child_bit_step_launches")},
              **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
@@ -815,10 +884,14 @@ def main():
         dict(name="rollout", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/rollout.cu",
              replaces="gymothelloenv_tpu/ops/pallas_rollout.py:193",
-             launches=launches["rollout"], library_ms=None,
-             equal=True, tolerance="exact",
+             launches=launches["rollout"] + dp_rollout["launches"],
+             launches_by_path={"bench": launches["rollout"],
+                               "rollout_chunk_sharded":
+                                   dp_rollout["launches"]},
+             library_ms=None, equal=True, tolerance="exact",
              shape=f"{ROLLOUT_N} games x {ROLLOUT_STEPS} plies",
-             words_ms=words_ms, words_plies=PARITY_STEPS, **k1),
+             words_ms=words_ms, words_plies=PARITY_STEPS,
+             sharded=dp_rollout, **k1),
         dict(name="rollout_variants", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/rollout.cu",
              replaces="scripts/bench_rollout_variants.py:68",
@@ -4577,6 +4650,398 @@ def _compat_phase(torch, tb, legal_mask, step, dev):
         f"{out['ms_a_ply_range'][1]:.3f}); the .pth policy's forward "
         f"{err:.2e} from its module, vs greedy {w}/{d}/{l} with "
         f"{eval_counts['bit_step_launches']} B1 launches, no K2")
+    return out
+
+
+def _cli_phase(torch, tb, legal_mask, step, dev):
+    """The remaining CLIs and utilities on the card: cli.replay of the
+    committed wide2 net (--deterministic) against maximin-2, its page
+    equal to a CPU run's and one B1 launch a ply; one cli.enjoy episode
+    of the net against greedy with --live-html, its transcript equal to a
+    CPU run's; cli.sweep --format script; a utils.profiling.trace of one
+    wide2 PPO update (N CLI_TRACE_ENVS, T CLI_TRACE_STEPS) whose
+    summarize_trace names B1 (bit_step_kernel) and the update's kernels;
+    cli.visualize.load_run on that run's metrics.jsonl, and its plot
+    where matplotlib is installed."""
+    import io
+    from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+    from gymothelloenv_tpu_torch.cli import enjoy, replay, sweep, visualize
+    from gymothelloenv_tpu_torch.train.ppo_trainer import (
+        PPOSelfPlayTrainer, SelfPlayConfig)
+    from gymothelloenv_tpu_torch.utils import profiling
+    from gymothelloenv_tpu_torch.utils.logging import MetricsLogger
+    ckpt = os.path.join(HERE, TS_TEACHER)
+    say(f"[cli] start: replay net:{TS_TEACHER} vs maximin-2, enjoy vs "
+        f"greedy with --live-html, sweep, a traced wide2 update (N "
+        f"{CLI_TRACE_ENVS}, T {CLI_TRACE_STEPS}), visualize.load_run")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--black", f"net:{ckpt}", "--white", "maximin-2",
+                "--deterministic", "--seed", str(SEED)]
+        pages = {}
+        for device in (DEVICE_TYPE, "cpu"):
+            path = os.path.join(tmp, f"replay_{device}.html")
+            _zero_counts(legal_mask, step)
+            with _no_plain(tb) as plain_calls, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                frames = replay.main(argv + ["--device", device, "--out",
+                                             path])
+            if device == DEVICE_TYPE:
+                torch.cuda.synchronize()
+                counts = _counts(legal_mask, step)
+                replay_plain = list(plain_calls)
+            with open(path) as f:
+                pages[device] = f.read()
+        plies = len(frames) - 1
+        require(pages[DEVICE_TYPE] == pages["cpu"],
+                "[cli] the replay page on the card differs from the CPU's")
+        require(counts["bit_step_launches"] == plies > 0,
+                f"[cli] replay: {counts} for {plies} plies")
+        _require_no_k2(counts["k2_launches"], "replay")
+        require(not replay_plain, f"[cli] replay ran a plain ply: "
+                f"{replay_plain[:3]}")
+        out.update(replay_plies=plies, replay_counts=counts,
+                   replay_final=frames[-1][3])
+
+        live = os.path.join(tmp, "live.html")
+        texts = {}
+        for device in (DEVICE_TYPE, "cpu"):
+            _zero_counts(legal_mask, step)
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rewards = enjoy.main([
+                    "--load", ckpt, "--opponent", "greedy",
+                    "--deterministic", "--seed", str(SEED), "--device",
+                    device, "--live-html", live])
+            if device == DEVICE_TYPE:
+                torch.cuda.synchronize()
+                enjoy_counts = _counts(legal_mask, step)
+            texts[device] = text.getvalue().replace(live, "LIVE")
+        lines = texts[DEVICE_TYPE].splitlines()
+        enjoy_plies = sum(" plays " in x for x in lines)
+        require(texts[DEVICE_TYPE] == texts["cpu"],
+                "[cli] the enjoy transcript on the card differs from the "
+                "CPU's")
+        with open(live) as f:
+            page = f.read()
+        require("game over" in page, "[cli] enjoy's live page is not the "
+                "game-over page")
+        require(enjoy_counts["bit_step_launches"] >= enjoy_plies > 0,
+                f"[cli] enjoy: {enjoy_counts} for {enjoy_plies} plies")
+        _require_no_k2(enjoy_counts["k2_launches"], "enjoy")
+        out.update(enjoy_plies=enjoy_plies, enjoy_counts=enjoy_counts,
+                   enjoy_reward=rewards[0])
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            cmds = sweep.main(["--trainer", "ppo_self_play", "--num-seeds",
+                               "2", "--out-dir", os.path.join(tmp, "sweep"),
+                               "--", "--num-updates", "1"])
+        with open(os.path.join(tmp, "sweep", "run_all.sh")) as f:
+            script = f.read()
+        require(script.count("gymothelloenv_tpu_torch.cli.ppo_self_play")
+                == len(cmds) == 2 and "sleep" not in script,
+                "[cli] the sweep script is not two runs without a pause")
+
+        run_dir, trace_dir = (os.path.join(tmp, d) for d in ("run", "trace"))
+        with MetricsLogger(run_dir, also_print=False) as log:
+            trainer = PPOSelfPlayTrainer(
+                ppo_cfg=PPOConfig(lr=TRAIN_LR, entropy_coef=TRAIN_ENTROPY,
+                                  num_updates=10),
+                run_cfg=SelfPlayConfig(
+                    num_envs=CLI_TRACE_ENVS, num_steps=CLI_TRACE_STEPS,
+                    width_mult=WIDTH_MULT, hidden_size=HIDDEN,
+                    test_interval=10 ** 9, seed=SEED),
+                log_fn=log.log, device=DEVICE_TYPE)
+            trainer.train(1, log_every=1)
+            timer = profiling.StepTimer(warmup=0)
+            _zero_counts(legal_mask, step)
+            with profiling.trace(trace_dir), \
+                    timer.measure(list(trainer.net.parameters())):
+                trainer.train(1, log_every=1)
+            traced = _counts(legal_mask, step)
+        ops = profiling.summarize_trace(trace_dir)
+        names = [o.name for o in ops]
+        # csrc/step.cu's kernels sit in an anonymous namespace.
+        b1 = sum(o.count for o in ops if "bit_step_kernel" in o.name)
+        update = [o for o in ops if "bit_step_kernel" not in o.name]
+        backward = [o for o in update if "backward" in o.op]
+        require(b1 == traced["bit_step_launches"] > 0,
+                f"[cli] the trace holds {b1} bit_step_kernel runs for "
+                f"{traced['bit_step_launches']} B1 launches")
+        require(len(update) >= 3 and sum(o.total_us for o in update) > 0,
+                f"[cli] the trace names too few of the update's kernels: "
+                f"{names[:20]}")
+        say("[cli] summarize_trace of one traced update:\n"
+            + profiling.format_op_table(ops, top=12))
+        series = visualize.load_run(run_dir)
+        require(len(series["value_loss"][0]) == 2 and all(
+            math.isfinite(v) for v in series["value_loss"][1]),
+            f"[cli] load_run: {sorted(series)}")
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                visualize.main([run_dir, "--out",
+                                os.path.join(tmp, "curves.png")])
+            plot = "drawn"
+        except ImportError as err:
+            require("matplotlib" in str(err), f"[cli] visualize: {err}")
+            plot = "not drawn: this machine has no matplotlib"
+        paths = (counts, enjoy_counts, traced)
+        out.update({k: sum(c[k] for c in paths) for k in traced})
+        out.update(trace_kernels=len(ops), trace_b1=b1,
+                   trace_backward_kernels=len(backward),
+                   trace_update_seconds=timer.times[0],
+                   trace_device_ms=sum(o.total_us for o in ops) / 1e3,
+                   plot=plot)
+    say(f"[cli] ok: replay {plies} plies = {counts['bit_step_launches']} "
+        f"B1 launches, card = CPU page ({out['replay_final']}); enjoy "
+        f"{enjoy_plies} plies, {enjoy_counts['bit_step_launches']} B1 "
+        f"launches, card = CPU transcript, reward {rewards[0]}; sweep "
+        f"script of 2 runs, no pause; trace of one update in "
+        f"{timer.times[0]:.3f} s: {len(ops)} kernels, "
+        f"{out['trace_device_ms']:.1f} device ms, bit_step_kernel x "
+        f"{b1}, {len(backward)} kernels under backward ops; load_run "
+        f"{sorted(series)[:4]}...; plot {plot}")
+    return out
+
+
+def _dp_phase(torch, tb, ro, legal_mask, step, dev):
+    """Data-parallel training on the card (parallel/): (a) world 1 under
+    nccl through the mesh path against the mesh=None trainer, which also
+    runs twice by default and twice with cuDNN deterministic; (b) two
+    gloo ranks sharing the card, N / 2 games each, against (a); (c) the
+    dryrun's small families world 1 vs 2; the planted faults (DP_FAULTS)
+    against (a) and (c)'s world 1; (d) rollout_chunk_sharded over the two
+    ranks against the plain rollout on each slice.  (b), (c), the faults
+    and (d) run in one spawned cluster; a rank that fails fails the
+    phase."""
+    import torch.distributed as dist
+    from gymothelloenv_tpu_torch.parallel import dryrun, make_mesh
+    from gymothelloenv_tpu_torch.parallel.sharding import (
+        assert_tree_allclose)
+    from gymothelloenv_tpu_torch.utils import timing
+    wide = dryrun.Size(num_envs=DP_ENVS, num_steps=DP_STEPS,
+                       hidden_size=HIDDEN, width_mult=WIDTH_MULT)
+    say(f"[dp] start: (a) world 1 under nccl, wide2 PPO N {DP_ENVS}, T "
+        f"{DP_STEPS}, {DP_UPDATES} updates vs mesh=None; (b) 2 gloo ranks "
+        f"on {dev}, N {DP_ENVS // 2} each; (c) dryrun {DP_FAMILIES} world 1 "
+        f"vs 2; (d) rollout_chunk_sharded N {DP_ROLLOUT_N} on 2 ranks")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) world 1 under nccl: every collective of the mesh path.
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh(backend="nccl", device=dev)
+            require(mesh.distributed and mesh.world == 1,
+                    f"[dp] nccl mesh {mesh}")
+            _zero_counts(legal_mask, step)
+            t0 = time.perf_counter()
+            with _no_plain(tb) as plain_calls:
+                nccl = dryrun.train_family("ppo", mesh, dev, DP_UPDATES,
+                                           wide)
+            torch.cuda.synchronize()
+            out["world1_seconds"] = time.perf_counter() - t0
+            counts = _counts(legal_mask, step)
+        finally:
+            dist.destroy_process_group()
+        require(not plain_calls, f"[dp] ran a plain ply: {plain_calls[:3]}")
+        require(counts["bit_step_launches"] > 0, f"[dp] {counts}")
+        _require_no_k2(counts["k2_launches"], "dp")
+        out.update(counts)
+        plain = dryrun.train_family("ppo", None, dev, DP_UPDATES, wide)
+        again = dryrun.train_family("ppo", None, dev, DP_UPDATES, wide)
+        init = dryrun.state_of("ppo", dryrun.build("ppo", None, dev, wide))
+        repeat_equal = all(torch.equal(plain["state"][k], again["state"][k])
+                           for k in plain["state"])
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            det = [dryrun.train_family("ppo", None, dev, DP_UPDATES,
+                                       wide)["state"] for _ in range(2)]
+        finally:
+            torch.backends.cudnn.deterministic = was
+        det_equal = all(torch.equal(det[0][k], det[1][k]) for k in det[0])
+        rel_repeat = _dp_worst("(a) mesh=None twice", plain["state"],
+                               again["state"], init)
+        rel_a = _dp_rel("(a) nccl world 1 vs mesh=None", plain["state"],
+                        nccl["state"], init)
+
+        # (b), (c), (d): one cluster of two gloo ranks on this card.
+        expert = dryrun.write_expert(os.path.join(tmp, "expert.npz"))
+        small = {"families": list(DP_FAMILIES), "updates": 1, "size": {},
+                 "expert": expert}
+        wide_ppo = {"families": ["ppo"], "updates": DP_UPDATES,
+                    "size": dataclasses.asdict(wide)}
+        args = {"runs": {"wide": wide_ppo, "small": small},
+                "rollout": {"num_games": DP_ROLLOUT_N,
+                            "num_steps": DP_ROLLOUT_STEPS, "seed": SEED},
+                "faults": list(DP_FAULTS),
+                "fault_runs": {"wide": wide_ppo,
+                               "small": dict(small, families=["ppo"])}}
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn(2, "chip_smoke:dp_cluster_task", args,
+                             backend="gloo",
+                             device=str(dev),
+                             out_dir=os.path.join(tmp, "cluster"),
+                             timeout_s=DP_TIMEOUT_S)
+        out["cluster_seconds"] = time.perf_counter() - t0
+        one = dryrun.families_task(make_mesh(backend="gloo", device=dev),
+                                   dev, small)
+    dryrun.check_replicated([r["wide"]["ppo"] for r in ranks])
+    rel_b = _dp_rel("(b) 2 gloo ranks vs (a)", nccl["state"],
+                    ranks[0]["wide"]["ppo"]["state"], init)
+    fam = {}
+    for f in DP_FAMILIES:
+        dryrun.check_replicated([r["small"][f] for r in ranks])
+        got, want = ranks[0]["small"][f]["state"], one[f]["state"]
+        assert_tree_allclose(want, got, name=f"[dp] {f}",
+                             require_finite=True)
+        fam[f] = max(float((got[k] - want[k]).abs().max()) for k in want)
+
+    # The planted faults: each must fail the gate of its size.
+    faults = {}
+    for fault in DP_FAULTS:
+        res = ranks[0]["faults"][fault]
+        got, want = res["small"]["ppo"]["state"], one["ppo"]["state"]
+        try:
+            assert_tree_allclose(want, got, name=fault)
+            small_caught = False
+        except AssertionError:
+            small_caught = True
+        faults[fault] = dict(
+            wide_rel=_dp_worst(fault, nccl["state"],
+                               res["wide"]["ppo"]["state"], init),
+            small_max_abs_diff=max(float((got[k] - want[k]).abs().max())
+                                   for k in want),
+            small_caught=small_caught)
+        require(faults[fault]["wide_rel"] > DP_PARAM_RTOL,
+                f"[dp] the gate misses the planted fault {fault} at the "
+                f"wide size: {faults[fault]['wide_rel']:.3e} of the largest "
+                f"change <= {DP_PARAM_RTOL}")
+        require(small_caught, f"[dp] JAX's gate misses the planted fault "
+                f"{fault} at the dryrun's size")
+
+    # (d) each rank's rollout against the plain one on its slice.
+    n, half = DP_ROLLOUT_N, DP_ROLLOUT_N // 2
+    state = dryrun.rollout_init_state(n, SEED + 1, 20, dev)
+    total = 0
+    for rank, res in enumerate(ranks):
+        r = res["rollout"]
+        mine = ro.RolloutState(**{k: getattr(state, k)[rank * half:
+                                                      (rank + 1) * half]
+                                  for k in ("cur", "opp", "legal")})
+        want, eps = ro.rollout_chunk_plain(
+            mine, SEED + rank * ro.RANK_SEED_STRIDE, DP_ROLLOUT_STEPS)
+        for k in ("cur", "opp", "legal"):
+            require(torch.equal(r["state"][k], getattr(want, k).cpu()),
+                    f"[dp] rank {rank}'s sharded rollout differs from the "
+                    f"plain one on {k}")
+        require(r["launches"] == 1, f"[dp] rank {rank}: {r['launches']} K1 "
+                "launches for one chunk")
+        total += int(eps)
+    require(all(r["rollout"]["episodes"] == total > 0 for r in ranks),
+            f"[dp] episode counts {[r['rollout']['episodes'] for r in ranks]}"
+            f" for a sum of {total}")
+    one_ms = timing.device_ms(lambda: ro.rollout_chunk(
+        state, SEED, DP_ROLLOUT_STEPS), 5)
+    rollout = dict(launches=sum(r["rollout"]["launches"] for r in ranks),
+                   episodes=total, ranks_ms=[r["rollout"]["ms"]
+                                             for r in ranks],
+                   one_process_ms=one_ms, num_games=n,
+                   num_steps=DP_ROLLOUT_STEPS)
+    out.update(rel_a=rel_a, rel_b=rel_b, rel_repeat=rel_repeat,
+               repeat_bit_equal=repeat_equal,
+               deterministic_repeat_bit_equal=det_equal,
+               families_max_abs_diff=fam,
+               faults=faults, rollout=rollout,
+               child_bit_step_launches=sum(
+                   r[k][f]["bit_step_launches"] for r in ranks
+                   for k in ("wide", "small") for f in r[k]))
+    say(f"[dp] ok: (a) nccl world 1 = mesh=None, per leaf "
+        f"{rel_a:.3e} of its largest change (rtol {DP_PARAM_RTOL}), "
+        f"{counts['bit_step_launches']} B1 launches in "
+        f"{out['world1_seconds']:.2f} s; mesh=None twice "
+        f"{'bit-equal' if repeat_equal else 'not bit-equal'}, "
+        f"{rel_repeat:.3e}, and with cuDNN deterministic "
+        f"{'bit-equal' if det_equal else 'not bit-equal'}; (b) 2 gloo "
+        f"ranks = (a), "
+        f"{rel_b:.3e}, ranks replicated; (c) world 2 = world 1 "
+        + ", ".join(f"{f} {d:.1e}" for f, d in fam.items())
+        + " (rtol 5e-3, atol 1e-5); planted faults fail the gate: "
+        + ", ".join(f"{f} wide {v['wide_rel']:.3e}, small max abs diff "
+                    f"{v['small_max_abs_diff']:.1e}"
+                    for f, v in faults.items())
+        + f"; (d) rollout_chunk_sharded = plain on "
+        f"each slice, {total} episodes summed, ms a chunk by rank "
+        + ", ".join(f"{m:.3f}" for m in rollout["ranks_ms"])
+        + f" (two ranks sharing the card) beside {one_ms:.3f} in one "
+        f"process at N {n}; cluster {out['cluster_seconds']:.2f} s")
+    return out
+
+
+def _dp_worst(what, want, got, init):
+    """The largest per-leaf |got - want| over the leaf's largest change
+    from ``init`` (infinite where a leaf that ``want`` left alone moved);
+    fails on a non-finite value."""
+    worst = 0.0
+    for k in want:
+        change = float((want[k] - init[k]).abs().max())
+        diff = float((got[k] - want[k]).abs().max())
+        require(math.isfinite(diff), f"[dp] {what}: {k} is not finite")
+        if change > 0:
+            worst = max(worst, diff / change)
+        elif diff:
+            worst = math.inf
+    return worst
+
+
+def _dp_rel(what, want, got, init):
+    """``_dp_worst``, failing above DP_PARAM_RTOL."""
+    worst = _dp_worst(what, want, got, init)
+    require(worst <= DP_PARAM_RTOL, f"[dp] {what}: a leaf differs by "
+            f"{worst:.3e} of its largest change > {DP_PARAM_RTOL}")
+    return worst
+
+
+@contextlib.contextmanager
+def _planted(fault):
+    """A data-parallel fault patched into agents/ppo.py for [dp]'s gate
+    to catch: ``unreduced_grads``, each rank steps on its own gradients
+    (the loss terms are still summed); ``local_moments``, each rank
+    normalises its advantages by its own games' moments."""
+    from gymothelloenv_tpu_torch.agents import ppo
+    from gymothelloenv_tpu_torch.parallel import sharding
+    if fault == "unreduced_grads":
+        name = "all_reduce_grads"
+
+        def fake(params, mesh, extra=()):
+            sharding.all_reduce_sum(list(extra), mesh)
+    elif fault == "local_moments":
+        name = "normalize_advantages"
+
+        def fake(adv, weights=None, mesh=None):
+            return real(adv, weights)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+    real = getattr(ppo, name)
+    setattr(ppo, name, fake)
+    try:
+        yield
+    finally:
+        setattr(ppo, name, real)
+
+
+def dp_cluster_task(mesh, device, args):
+    """[dp]'s ``parallel.dryrun.spawn`` task: ``dryrun.cluster_task``,
+    then with each fault of ``args["faults"]`` planted, the runs of
+    ``args["fault_runs"]`` (``dryrun.families_task`` args by name)."""
+    from gymothelloenv_tpu_torch.parallel import dryrun
+    out = dryrun.cluster_task(mesh, device, args)
+    out["faults"] = {}
+    for fault in args["faults"]:
+        with _planted(fault):
+            out["faults"][fault] = {
+                name: dryrun.families_task(mesh, device, run)
+                for name, run in args["fault_runs"].items()}
     return out
 
 

@@ -22,6 +22,8 @@ from gymothelloenv_tpu_torch.agents.ppo import (PPOConfig, Transition,
                                                 clip_by_global_norm,
                                                 compute_gae)
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
+from gymothelloenv_tpu_torch.parallel.sharding import (all_reduce_grads,
+                                                       global_mean)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,10 +99,13 @@ def a2c_returns(rollout: Transition, bootstrap_value: torch.Tensor,
 
 def a2c_update(net: torch.nn.Module, optimizer: A2COptimizer,
                rollout: Transition, bootstrap_value: torch.Tensor,
-               cfg: A2CConfig) -> dict:
+               cfg: A2CConfig, mesh=None) -> dict:
     """One full-batch update (a2c_acktr.py:34-76) of ``net`` (``net(obs)
     -> (logits, value)``) on the (T, N) rollout.  Returns the metrics
-    ``value_loss``, ``action_loss`` and ``entropy`` (0-d tensors)."""
+    ``value_loss``, ``action_loss`` and ``entropy`` (0-d tensors).
+    ``mesh``: the rollout holds this rank's games; the means are over
+    every rank's rows and the gradients are summed over the ranks before
+    the step (``agents.ppo.ppo_update``'s scheme)."""
     returns = a2c_returns(rollout, bootstrap_value, cfg).reshape(-1)
 
     def flat(x):
@@ -109,14 +114,16 @@ def a2c_update(net: torch.nn.Module, optimizer: A2COptimizer,
     dist = MaskedCategorical(logits=logits, mask=flat(rollout.legal))
     logp = dist.log_prob(flat(rollout.action))
     adv = returns - values
-    value_loss = (adv ** 2).mean()
-    action_loss = -(adv.detach() * logp).mean()
-    entropy = dist.entropy_full().mean()
+    value_loss = global_mean(adv ** 2, mesh)
+    action_loss = -global_mean(adv.detach() * logp, mesh)
+    entropy = global_mean(dist.entropy_full(), mesh)
     total = (value_loss * cfg.value_loss_coef + action_loss
              - entropy * cfg.entropy_coef)
     optimizer.zero_grad()
     total.backward()
+    terms = torch.stack([value_loss.detach(), action_loss.detach(),
+                         entropy.detach()])
+    if mesh is not None:
+        all_reduce_grads(optimizer.params, mesh, [terms])
     optimizer.step()
-    return {"value_loss": value_loss.detach(),
-            "action_loss": action_loss.detach(),
-            "entropy": entropy.detach()}
+    return dict(zip(("value_loss", "action_loss", "entropy"), terms))

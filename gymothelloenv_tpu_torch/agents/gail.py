@@ -35,6 +35,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from gymothelloenv_tpu_torch.agents.ppo import Adam
+from gymothelloenv_tpu_torch.parallel.sharding import all_reduce_sum
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
 
@@ -81,11 +82,26 @@ class RunningMeanStd:
             return torch.tensor(v, dtype=torch.float32, device=device)
         return cls(mean=f(0.0), var=f(1.0), count=f(1e-4))
 
-    def update(self, batch: torch.Tensor) -> "RunningMeanStd":
-        b_mean = batch.mean()
-        b_var = batch.var(correction=0)
-        b_count = torch.tensor(float(batch.numel()), dtype=torch.float32,
-                               device=batch.device)
+    def update(self, batch: torch.Tensor, mesh=None) -> "RunningMeanStd":
+        """Merge ``batch``'s moments; on a ``mesh`` those of every rank's
+        batch (its count, sum and sum of squares in one float64
+        ``all_reduce``)."""
+        if mesh is None:
+            b_mean = batch.mean()
+            b_var = batch.var(correction=0)
+            b_count = torch.tensor(float(batch.numel()), dtype=torch.float32,
+                                   device=batch.device)
+        else:
+            x = batch.to(torch.float64)
+            moments = torch.stack([torch.tensor(
+                float(x.numel()), dtype=torch.float64, device=x.device),
+                x.sum(), (x * x).sum()])
+            all_reduce_sum([moments], mesh)
+            mean = moments[1] / moments[0]
+            b_mean = mean.to(torch.float32)
+            b_var = (moments[2] / moments[0] - mean * mean).clamp(
+                min=0.0).to(torch.float32)
+            b_count = moments[0].to(torch.float32)
         delta = b_mean - self.mean
         tot = self.count + b_count
         new_mean = self.mean + delta * b_count / tot
@@ -162,17 +178,19 @@ def gail_discriminator_update(state: GAILState, cfg: GAILConfig,
 @torch.no_grad()
 def gail_predict_reward(state: GAILState, cfg: GAILConfig,
                         sa: torch.Tensor, masks: torch.Tensor,
-                        update_rms: bool = True):
+                        update_rms: bool = True, mesh=None):
     """``log s - log(1 - s)`` over the running return std (gail.py:
     98-111).  ``sa`` (N, D), ``masks`` (N,) = 1 - the previous slot's
-    done.  Returns ``(state, rewards (N,))``."""
+    done.  Returns ``(state, rewards (N,))``.  On a ``mesh`` the rows are
+    this rank's games and the running moments merge every rank's
+    returns."""
     s = torch.sigmoid(state.net(sa))
     reward = torch.log(s + 1e-8) - torch.log(1 - s + 1e-8)
     # returns * masks * gamma + reward in one rounding, as XLA's fused
     # multiply-add (agents.a2c.a2c_returns).
     returns = torch.addcmul(reward, state.returns * masks,
                             torch.full_like(reward, cfg.gamma))
-    ret_rms = state.ret_rms.update(returns) if update_rms \
+    ret_rms = state.ret_rms.update(returns, mesh) if update_rms \
         else state.ret_rms
     state = dataclasses.replace(state, returns=returns, ret_rms=ret_rms)
     return state, reward / torch.sqrt(ret_rms.var + 1e-8)

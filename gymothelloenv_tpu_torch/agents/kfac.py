@@ -43,6 +43,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
+from gymothelloenv_tpu_torch.parallel.sharding import (all_reduce_sum,
+                                                       global_mean)
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
 _LAYER_LEAVES = ("d_a", "d_g", "m_aa", "m_gg", "momentum", "q_a", "q_g")
@@ -244,15 +246,25 @@ def _augment(a: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def update_fisher_stats(state: KFACState, cfg: ACKTRConfig, layer_inputs,
-                        fisher_g) -> None:
+                        fisher_g, mesh=None) -> None:
     """Fold one Fisher sample into the running Kronecker factors, in place
-    (kfac.py:144-188)."""
-    for ls, a, g in zip(state.layers, layer_inputs, fisher_g):
-        batch = a.shape[0]
+    (kfac.py:144-188).  The factors are batch means: on a ``mesh`` (each
+    rank holding its share of the rows) the sums ``a^T a`` and ``g^T g``
+    of every layer are summed over the ranks in one collective and divided
+    by the global row count, so every rank folds in the global factors
+    before its eigendecomposition."""
+    world = 1 if mesh is None else mesh.world
+    sums = []
+    for a, g in zip(layer_inputs, fisher_g):
+        batch = a.shape[0] * world
         a_aug = _augment(a)
-        cov_a = a_aug.T @ a_aug / batch
         gs = g * batch                       # kfac.py grad-scale convention
-        cov_g = gs.T @ gs / batch
+        sums += [a_aug.T @ a_aug, gs.T @ gs]
+    if mesh is not None:
+        all_reduce_sum(sums, mesh)
+    for i, (ls, a) in enumerate(zip(state.layers, layer_inputs)):
+        batch = a.shape[0] * world
+        cov_a, cov_g = sums[2 * i] / batch, sums[2 * i + 1] / batch
         ls.m_aa = cfg.stat_decay * ls.m_aa + (1 - cfg.stat_decay) * cov_a
         ls.m_gg = cfg.stat_decay * ls.m_gg + (1 - cfg.stat_decay) * cov_g
 
@@ -438,13 +450,14 @@ def acktr_conv_init(board_size: int, num_actions: int, in_planes: int = 4,
 
 
 def fisher_grads(agent: ACKTRAgent, obs: torch.Tensor, legal: torch.Tensor,
-                 cfg: ACKTRConfig, draws):
+                 cfg: ACKTRConfig, draws, mesh=None):
     """The sampled-label Fisher losses' pre-activation gradients
     (a2c_acktr.py:53-68): the actor's ``-mean log pi(a~)`` at actions
     sampled from the policy (a uniform a row from ``draws``), the critic's
     ``-coef * mean (v - (v + noise))^2`` with standard-normal noise (a
     normal a row from ``draws``).  Returns ``(actor inputs, actor dL/dz,
-    critic inputs, critic dL/dz)``."""
+    critic inputs, critic dL/dz)``.  On a ``mesh`` the means are over
+    every rank's rows (this rank's ``obs`` are its share)."""
     k = obs.shape[0]
     towers = []
     for stack in (agent.actor, agent.critic):
@@ -454,26 +467,29 @@ def fisher_grads(agent: ACKTRAgent, obs: torch.Tensor, legal: torch.Tensor,
     (logits, a_in, a_pert), (values, c_in, c_pert) = towers
     dist = MaskedCategorical(logits=logits, mask=legal)
     sampled = dist.sample(u=draws.uniforms(k, obs.device))
-    g_actor = torch.autograd.grad(-dist.log_prob(sampled).mean(), a_pert)
+    g_actor = torch.autograd.grad(
+        -global_mean(dist.log_prob(sampled), mesh), a_pert)
     noise = draws.normals(k, obs.device)[:, None]
     target = (values + noise).detach()
-    critic_loss = -cfg.value_loss_coef * ((values - target) ** 2).mean()
+    critic_loss = -cfg.value_loss_coef * global_mean(
+        (values - target) ** 2, mesh)
     g_critic = torch.autograd.grad(critic_loss, c_pert)
     return a_in, g_actor, c_in, g_critic
 
 
 def acktr_loss(agent: ACKTRAgent, obs, legal, action, returns,
-               cfg: ACKTRConfig):
-    """A2C's loss on both towers; returns ``(total, metrics)``."""
+               cfg: ACKTRConfig, mesh=None):
+    """A2C's loss on both towers; returns ``(total, metrics)``.  On a
+    ``mesh`` each mean is this rank's sum over every rank's row count."""
     logits, _ = agent.actor(obs)
     values, _ = agent.critic(obs)
     values = values[:, 0]
     dist = MaskedCategorical(logits=logits, mask=legal)
     logp = dist.log_prob(action)
     adv = returns - values
-    value_loss = (adv ** 2).mean()
-    action_loss = -(adv.detach() * logp).mean()
-    entropy = dist.entropy_full().mean()
+    value_loss = global_mean(adv ** 2, mesh)
+    action_loss = -global_mean(adv.detach() * logp, mesh)
+    entropy = global_mean(dist.entropy_full(), mesh)
     total = (value_loss * cfg.value_loss_coef + action_loss
              - entropy * cfg.entropy_coef)
     return total, {"value_loss": value_loss.detach(),
@@ -483,28 +499,38 @@ def acktr_loss(agent: ACKTRAgent, obs, legal, action, returns,
 
 def acktr_update(agent: ACKTRAgent, obs: torch.Tensor, legal: torch.Tensor,
                  action: torch.Tensor, returns: torch.Tensor,
-                 cfg: ACKTRConfig, draws) -> dict:
+                 cfg: ACKTRConfig, draws, mesh=None) -> dict:
     """One ACKTR update (a2c_acktr.py:34-76 with acktr=True), in place:
     every ``t_stat`` steps the Fisher sample folds into the factors (its
     uniforms and normals from ``draws``), every ``t_inv`` steps the
     eigendecompositions refresh, then the A2C loss gradients take the
     K-FAC step on both towers.  ``obs``: flat (K, obs_dim) for the MLP
     towers, (K, C, B, B) planes for the conv ones; ``returns`` (K,).
-    Returns the loss metrics (0-d tensors)."""
+    Returns the loss metrics (0-d tensors).
+
+    ``mesh``: the K rows are this rank's share (its draws from a
+    ``ShardedDraws``); the Fisher factors, the gradients and the metrics
+    are reduced over the ranks, so every rank takes the same step."""
     obs = obs.to(torch.float32)
     ka, kc = agent.kfac_actor, agent.kfac_critic
     if ka.step % cfg.t_stat == 0:
         a_in, g_actor, c_in, g_critic = fisher_grads(agent, obs, legal, cfg,
-                                                     draws)
-        update_fisher_stats(ka, cfg, a_in, g_actor)
-        update_fisher_stats(kc, cfg, c_in, g_critic)
+                                                     draws, mesh)
+        update_fisher_stats(ka, cfg, a_in, g_actor, mesh)
+        update_fisher_stats(kc, cfg, c_in, g_critic, mesh)
     if ka.step % cfg.t_inv == 0:
         refresh_eigendecomp(ka)
         refresh_eigendecomp(kc)
-    total, metrics = acktr_loss(agent, obs, legal, action, returns, cfg)
+    total, metrics = acktr_loss(agent, obs, legal, action, returns, cfg,
+                                mesh)
     actor, critic = agent.actor.layers(), agent.critic.layers()
     flat = [p for layer in actor + critic for p in (layer["w"], layer["b"])]
     grads = torch.autograd.grad(total, flat)
+    if mesh is not None:
+        terms = torch.stack(list(metrics.values()))
+        grads = all_reduce_sum([g.clone() for g in grads] + [terms],
+                               mesh)[:-1]
+        metrics = dict(zip(metrics, terms))
     pairs = [{"w": w, "b": b} for w, b in zip(grads[0::2], grads[1::2])]
     kfac_step(actor, ka, cfg, pairs[:len(actor)])
     kfac_step(critic, kc, cfg, pairs[len(actor):])

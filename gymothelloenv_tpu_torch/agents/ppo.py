@@ -30,6 +30,9 @@ from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
 from gymothelloenv_tpu_torch.ops.shuffle import (is_power_of_two,
                                                  minibatch_indices,
                                                  sort_perm)
+from gymothelloenv_tpu_torch.parallel.sharding import (all_reduce_grads,
+                                                       all_reduce_sum,
+                                                       owned_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -324,28 +327,34 @@ def compute_gae_masked(rollout: Transition, weights: torch.Tensor,
 
 def ppo_loss(net: torch.nn.Module, batch: Transition,
              advantages: torch.Tensor, returns: torch.Tensor,
-             cfg: PPOConfig, weights: torch.Tensor | None = None):
+             cfg: PPOConfig, weights: torch.Tensor | None = None,
+             denom=None):
     """Clipped-surrogate PPO loss on a flat minibatch (algo/ppo.py:50-104);
     returns ``(total, {value_loss, action_loss, entropy})``."""
     logits, values = net(batch.obs.to(torch.float32))
     return ppo_loss_terms(logits, values, batch, advantages, returns, cfg,
-                          weights)
+                          weights, denom)
 
 
 def ppo_loss_terms(logits: torch.Tensor, values: torch.Tensor,
                    batch: Transition, advantages: torch.Tensor,
                    returns: torch.Tensor, cfg: PPOConfig,
-                   weights: torch.Tensor | None = None):
+                   weights: torch.Tensor | None = None, denom=None):
     """The loss given the network's outputs on the minibatch; ``weights``
-    (per-row 0/1) leave weight-0 rows out of every mean."""
-    if weights is None:
+    (per-row 0/1) leave weight-0 rows out of every mean.  ``denom``: the
+    means' denominator (the row count, or the weight sum clamped at 1)
+    given from outside, as one rank's share of a minibatch spread over a
+    mesh divides its sums by the whole minibatch's."""
+    if weights is None and denom is None:
         def wmean(x):
             return x.mean()
     else:
-        denom = weights.sum().clamp(min=1.0)
+        w = 1.0 if weights is None else weights
+        if denom is None:
+            denom = weights.sum().clamp(min=1.0)
 
         def wmean(x):
-            return (x * weights).sum() / denom
+            return (x * w).sum() / denom
 
     dist = MaskedCategorical(logits=logits, mask=batch.legal)
     logp = dist.log_prob(batch.action)
@@ -377,11 +386,12 @@ def ppo_loss_terms(logits: torch.Tensor, values: torch.Tensor,
 
 
 def _advantages(rollout: Transition, bootstrap_value: torch.Tensor,
-                cfg: PPOConfig, weights=None, bad_transition=None):
+                cfg: PPOConfig, weights=None, bad_transition=None,
+                mesh=None):
     """GAE (plain, with proper time limits, or over weighted slots) and
     the normalised advantages (population std, as JAX's ``std``; the
-    weighted mean and std with ``weights``).  Returns ``(adv,
-    returns)``."""
+    weighted mean and std with ``weights``), over every rank's games on
+    a ``mesh``.  Returns ``(adv, returns)``."""
     if bad_transition is not None:
         if weights is not None:
             raise ValueError("weights and bad_transition are exclusive")
@@ -392,18 +402,47 @@ def _advantages(rollout: Transition, bootstrap_value: torch.Tensor,
     else:
         adv, returns = compute_gae_masked(rollout, weights,
                                           bootstrap_value, cfg)
+    return normalize_advantages(adv, weights, mesh), returns
+
+
+def normalize_advantages(adv: torch.Tensor, weights=None, mesh=None):
+    """``(adv - mean) / (std + 1e-5)``, population std as JAX's ``std``;
+    weighted by ``weights`` where given.  On a ``mesh`` the moments are
+    the global batch's: the weight, sum and sum of squares of every
+    rank's advantages in one float64 ``all_reduce``."""
+    if mesh is None:
+        if weights is None:
+            return (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
         denom = weights.sum().clamp(min=1.0)
         mean = (adv * weights).sum() / denom
         var = (((adv - mean) ** 2) * weights).sum() / denom
-        return (adv - mean) / (torch.sqrt(var) + 1e-5), returns
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-5), returns
+        return (adv - mean) / (torch.sqrt(var) + 1e-5)
+    a = adv.to(torch.float64)
+    w = (torch.ones_like(a) if weights is None
+         else weights.to(torch.float64))
+    moments = torch.stack([w.sum(), (w * a).sum(), (w * a * a).sum()])
+    all_reduce_sum([moments], mesh)
+    count = moments[0].clamp(min=1.0)
+    mean = moments[1] / count
+    var = (moments[2] / count - mean * mean).clamp(min=0.0)
+    return ((adv - mean.to(adv.dtype))
+            / (torch.sqrt(var).to(adv.dtype) + 1e-5))
+
+
+def _mesh_step(optimizer, mesh, terms) -> torch.Tensor:
+    """Sum the grads and the loss terms over the ranks in one collective,
+    then take the optimizer step (the same on every rank); returns the
+    summed terms."""
+    all_reduce_grads(optimizer.params, mesh, [terms])
+    optimizer.step()
+    return terms
 
 
 def ppo_update(net: torch.nn.Module, optimizer: Optimizer,
                rollout: Transition, bootstrap_value: torch.Tensor,
                epoch_words: torch.Tensor, cfg: PPOConfig,
                weights: torch.Tensor | None = None,
-               bad_transition: torch.Tensor | None = None):
+               bad_transition: torch.Tensor | None = None, mesh=None):
     """One full PPO update in place on ``net``: GAE, advantage
     normalisation, then ``ppo_epochs`` epochs of ``num_mini_batch``
     shuffled minibatches.
@@ -415,25 +454,36 @@ def ppo_update(net: torch.nn.Module, optimizer: Optimizer,
     ``bad_transition`` (optional (T, N) bool, exclusive with ``weights``)
     switches GAE to ``compute_gae_time_limits``.  Returns the metrics
     averaged over every minibatch, as 0-d tensors on the rollout's
-    device."""
+    device.
+
+    ``mesh`` (a ``parallel.DataMesh``): the rollout holds this rank's
+    games, the update computes the one-process update of the global
+    batch: the advantages are normalised over every rank's, each
+    minibatch is the same set of global rows as at world 1 (the
+    permutation over ``T * N`` global rows), each rank sums the loss of
+    the rows it holds over the whole minibatch's count (or weight) and
+    the gradients are summed over the ranks before the step, which every
+    rank then takes alike.  A rank whose share of a minibatch is empty
+    still joins each collective."""
     if tuple(epoch_words.shape) != (cfg.ppo_epochs, 4):
         raise ValueError(f"epoch_words must be ({cfg.ppo_epochs}, 4), got "
                          f"{tuple(epoch_words.shape)}")
     adv, returns = _advantages(rollout, bootstrap_value, cfg, weights,
-                               bad_transition)
+                               bad_transition, mesh)
 
-    T, N = rollout.reward.shape
+    T, n_local = rollout.reward.shape
+    N = n_local * (1 if mesh is None else mesh.world)
     batch_size = T * N
     mb_size = batch_size // cfg.num_mini_batch
     device = rollout.reward.device
     flat = {name: getattr(rollout, name).reshape(
-        (batch_size,) + getattr(rollout, name).shape[2:])
+        (T * n_local,) + getattr(rollout, name).shape[2:])
         for name in ("obs", "action", "logp", "value", "legal")}
     flat_adv, flat_ret = adv.reshape(-1), returns.reshape(-1)
     flat_w = None if weights is None else weights.reshape(-1)
     use_hash = cfg.shuffle == "hash" and is_power_of_two(batch_size)
 
-    metrics = []
+    minibatches = []
     for words in epoch_words.tolist():
         perm = None if use_hash else sort_perm(words, batch_size, device)
         for mb in range(cfg.num_mini_batch):
@@ -442,15 +492,38 @@ def ppo_update(net: torch.nn.Module, optimizer: Optimizer,
                                         device)
             else:
                 idx = perm[mb * mb_size:(mb + 1) * mb_size]
-            batch = Transition(reward=None, done=None,
-                               **{k: v[idx] for k, v in flat.items()})
-            optimizer.zero_grad()
-            loss, terms = ppo_loss(net, batch, flat_adv[idx],
-                                   flat_ret[idx], cfg,
-                                   None if flat_w is None else flat_w[idx])
+            minibatches.append(idx if mesh is None
+                               else owned_rows(idx, N, mesh)[1])
+    denoms = [None] * len(minibatches)
+    if mesh is not None:
+        # Each minibatch's global row count or weight, in one collective.
+        if flat_w is None:
+            denoms = [float(mb_size)] * len(minibatches)
+        else:
+            sums = torch.stack([flat_w[idx].sum() for idx in minibatches])
+            all_reduce_sum([sums], mesh)
+            denoms = list(sums.clamp(min=1.0))
+
+    metrics = []
+    for idx, denom in zip(minibatches, denoms):
+        batch = Transition(reward=None, done=None,
+                           **{k: v[idx] for k, v in flat.items()})
+        w = None if flat_w is None else flat_w[idx]
+        optimizer.zero_grad()
+        if mesh is None:
+            loss, terms = ppo_loss(net, batch, flat_adv[idx], flat_ret[idx],
+                                   cfg, w)
             loss.backward()
             optimizer.step()
             metrics.append(torch.stack([t.detach() for t in terms.values()]))
+            continue
+        terms = torch.zeros(3, device=device)
+        if idx.numel():
+            loss, parts = ppo_loss(net, batch, flat_adv[idx],
+                                   flat_ret[idx], cfg, w, denom)
+            loss.backward()
+            terms = torch.stack([t.detach() for t in parts.values()])
+        metrics.append(_mesh_step(optimizer, mesh, terms))
     mean = torch.stack(metrics).mean(0)
     return dict(zip(("value_loss", "action_loss", "entropy"), mean))
 
@@ -460,7 +533,7 @@ def ppo_update_recurrent(net: torch.nn.Module, optimizer: Optimizer,
                          masks: torch.Tensor, bootstrap_value: torch.Tensor,
                          cfg: PPOConfig, perms=None,
                          generator: torch.Generator | None = None,
-                         split_fns: tuple | None = None):
+                         split_fns: tuple | None = None, mesh=None):
     """The recurrent PPO update (JAX ``ppo_update_recurrent``; the vendored
     ``recurrent_generator``, storage.py:159-216) in place on ``net``.
 
@@ -476,10 +549,16 @@ def ppo_update_recurrent(net: torch.nn.Module, optimizer: Optimizer,
     ``perms``: one env permutation (N,) per epoch (JAX draws
     ``jax.random.permutation(epoch_key, N)``); ``None`` draws them with
     ``torch.randperm`` from ``generator`` (on the CPU).  Returns the
-    metrics averaged over every minibatch."""
+    metrics averaged over every minibatch.
+
+    ``mesh``: as ``ppo_update``'s, with games as the unit: the
+    permutations run over the ``N`` global games, each rank replays the
+    minibatch's games it holds and divides by the whole minibatch's
+    ``T * envs`` rows, the gradients are summed over the ranks."""
     adv, returns = compute_gae(rollout, bootstrap_value, cfg)
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
-    T, N = rollout.reward.shape
+    adv = normalize_advantages(adv, mesh=mesh)
+    T, n_local = rollout.reward.shape
+    N = n_local * (1 if mesh is None else mesh.world)
     if N % cfg.num_mini_batch:
         raise ValueError(
             f"num_envs ({N}) must divide by num_mini_batch "
@@ -496,10 +575,11 @@ def ppo_update_recurrent(net: torch.nn.Module, optimizer: Optimizer,
 
     def replay(obs, mb_h0, mb_masks):
         """(logits (T*envs, A), values (T*envs,)) of the minibatch."""
+        envs = obs.shape[1]
         if split_fns is not None:
             features, core, heads = split_fns
-            feats = features(obs.reshape((T * envs_mb,) + obs.shape[2:]))
-            feats = feats.reshape(T, envs_mb, -1)
+            feats = features(obs.reshape((T * envs,) + obs.shape[2:]))
+            feats = feats.reshape(T, envs, -1)
             h, ys = mb_h0, []
             for t in range(T):
                 y, h = core(feats[t], h, mb_masks[t])
@@ -517,18 +597,29 @@ def ppo_update_recurrent(net: torch.nn.Module, optimizer: Optimizer,
         perm = torch.as_tensor(perm, dtype=torch.int64, device=device)
         for mb in range(cfg.num_mini_batch):
             idx = perm[mb * envs_mb:(mb + 1) * envs_mb]
-            part = {k: getattr(rollout, k)[:, idx] for k in fields}
-            batch = Transition(reward=None, done=None, **{
-                k: v.reshape((T * envs_mb,) + v.shape[2:])
-                for k, v in part.items()})
+            if mesh is not None:
+                per, off = mesh.shard(N)
+                idx = idx[(idx >= off) & (idx < off + per)] - off
             optimizer.zero_grad()
-            logits, values = replay(part["obs"].to(torch.float32), h0[idx],
-                                    masks[:, idx])
-            loss, terms = ppo_loss_terms(
-                logits, values, batch, adv[:, idx].reshape(-1),
-                returns[:, idx].reshape(-1), cfg)
-            loss.backward()
-            optimizer.step()
-            metrics.append(torch.stack([t.detach() for t in terms.values()]))
+            terms = torch.zeros(3, device=device)
+            if idx.numel():
+                part = {k: getattr(rollout, k)[:, idx] for k in fields}
+                rows = T * idx.numel()
+                batch = Transition(reward=None, done=None, **{
+                    k: v.reshape((rows,) + v.shape[2:])
+                    for k, v in part.items()})
+                logits, values = replay(part["obs"].to(torch.float32),
+                                        h0[idx], masks[:, idx])
+                loss, parts = ppo_loss_terms(
+                    logits, values, batch, adv[:, idx].reshape(-1),
+                    returns[:, idx].reshape(-1), cfg,
+                    denom=None if mesh is None else float(T * envs_mb))
+                loss.backward()
+                terms = torch.stack([t.detach() for t in parts.values()])
+            if mesh is None:
+                optimizer.step()
+                metrics.append(terms)
+            else:
+                metrics.append(_mesh_step(optimizer, mesh, terms))
     mean = torch.stack(metrics).mean(0)
     return dict(zip(("value_loss", "action_loss", "entropy"), mean))

@@ -3,7 +3,7 @@ DQN training entry; dqn.py flags ``--prioritized/--double/--dueling/
 --n_step``, dqn.py:505-522): every JAX flag plus ``--device``.  The nets
 compute in float32 with TF32 off (``utils.device.use_float32``).
 ``--data-parallel`` and ``--replay-sharding per-shard`` raise: multi-device
-training is ROADMAP.md queue 1 item 13.  Checkpoints are the JAX CLI's
+training is ROADMAP.md queue 1 item 13b.  Checkpoints are the JAX CLI's
 files (flax msgpack with ``extra.t``), so ``--load`` resumes a run of
 either.
 

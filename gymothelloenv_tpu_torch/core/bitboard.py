@@ -337,11 +337,15 @@ def reset_where_plain(state: BitState, done: torch.Tensor) -> BitState:
 
 
 def uniform_index(count: torch.Tensor,
-                  generator: torch.Generator | None = None) -> torch.Tensor:
-    """One uniform draw ``t`` in ``[0, max(count, 1))`` per row, int64."""
+                  generator: torch.Generator | None = None,
+                  u: torch.Tensor | None = None) -> torch.Tensor:
+    """One uniform draw ``t`` in ``[0, max(count, 1))`` per row, int64,
+    from float64 uniforms in [0, 1): ``u`` given, else drawn from
+    ``generator``."""
     hi = count.clamp(min=1)
-    u = torch.rand(count.shape, generator=generator, device=count.device,
-                   dtype=torch.float64)
+    if u is None:
+        u = torch.rand(count.shape, generator=generator,
+                       device=count.device, dtype=torch.float64)
     return torch.minimum((u * hi).to(torch.int64), hi - 1)
 
 

@@ -36,6 +36,8 @@ from gymothelloenv_tpu_torch.core.bitboard import (INIT_BLACK, INIT_LEGAL,
                                                    lsr, popcount,
                                                    resolve_flips)
 from gymothelloenv_tpu_torch.ops import _build
+from gymothelloenv_tpu_torch.parallel.sharding import (all_reduce_sum,
+                                                       check_data_mesh)
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
 _M32 = 0xFFFFFFFF
@@ -388,3 +390,23 @@ def rollout_chunks(state: RolloutState, seed0: int, n_chunks: int,
         state, total = rollout_chunk(state, seed0 + i, num_steps,
                                      episodes=total, lanes=lanes)
     return state, int(total.item())
+
+
+# Seed offset a rank (JAX ``rollout_chunk_sharded``'s axis-index stride).
+RANK_SEED_STRIDE = 7919
+
+
+def rollout_chunk_sharded(state: RolloutState, seed: int, num_steps: int,
+                          mesh, lanes: int | None = None):
+    """K1 over a data-parallel mesh (JAX ``rollout_chunk_sharded``): each
+    rank plays its own games ``state`` (its shard of the global batch) in
+    ONE ``rollout_chunk`` launch at seed ``seed + rank * 7919``, then one
+    ``all_reduce(SUM)`` gives every rank the global episode count.
+    ``mesh``: a ``parallel.DataMesh``.  Returns ``(new local state,
+    global episodes)``, the count an int64 0-d tensor on the state's
+    device."""
+    mesh = check_data_mesh(mesh)
+    new, episodes = rollout_chunk(state, seed + mesh.rank * RANK_SEED_STRIDE,
+                                  num_steps, lanes=lanes)
+    all_reduce_sum([episodes], mesh)
+    return new, episodes

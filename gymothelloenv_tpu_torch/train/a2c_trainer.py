@@ -17,6 +17,7 @@ import time
 from gymothelloenv_tpu_torch.agents.a2c import (A2CConfig, a2c_update,
                                                 make_a2c_optimizer)
 from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.parallel.sharding import global_sums
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig)
 from gymothelloenv_tpu_torch.train.self_play import collect_rollout
@@ -38,7 +39,8 @@ def check_feed_forward(run: SelfPlayConfig) -> None:
 
 class A2CSelfPlayTrainer(PPOSelfPlayTrainer):
     """``device``: where the games, the net and the update run (``None``:
-    the current CUDA card; raises without one)."""
+    the current CUDA card; raises without one).  ``mesh``: data-parallel
+    training as the base trainer's (``agents.a2c.a2c_update(mesh=)``)."""
 
     def __init__(self, a2c_cfg: A2CConfig = None, env_cfg: EnvConfig = None,
                  run_cfg: SelfPlayConfig = None, log_fn=None, mesh=None,
@@ -67,8 +69,8 @@ class A2CSelfPlayTrainer(PPOSelfPlayTrainer):
         self._sync()
         t1 = time.perf_counter()
         metrics = a2c_update(self.net, self.optimizer, rollout, bootstrap,
-                             self.a2c_cfg)
-        metrics["episodes"] = rollout.done.sum()
+                             self.a2c_cfg, mesh=self.mesh)
+        metrics["episodes"], = global_sums([rollout.done.sum()], self.mesh)
         self._sync()
         metrics["collect_seconds"] = t1 - t0
         metrics["update_seconds"] = time.perf_counter() - t1

@@ -22,6 +22,8 @@ from gymothelloenv_tpu_torch.agents.kfac import (ACKTRConfig,
                                                  acktr_conv_init,
                                                  acktr_init, acktr_update)
 from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.parallel.sharding import (global_sums,
+                                                       place_replicated)
 from gymothelloenv_tpu_torch.train.a2c_trainer import check_feed_forward
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig)
@@ -32,7 +34,10 @@ from gymothelloenv_tpu_torch.utils.checkpoint import (load_checkpoint,
 
 class ACKTRSelfPlayTrainer(PPOSelfPlayTrainer):
     """``device``: where the games, the agent and the update run
-    (``None``: the current CUDA card; raises without one)."""
+    (``None``: the current CUDA card; raises without one).  ``mesh``:
+    data-parallel training as the base trainer's; the Kronecker factors
+    are all-reduced before each eigendecomposition
+    (``agents.kfac.acktr_update(mesh=)``)."""
 
     def __init__(self, acktr_cfg: ACKTRConfig = None,
                  env_cfg: EnvConfig = None, run_cfg: SelfPlayConfig = None,
@@ -50,6 +55,8 @@ class ACKTRSelfPlayTrainer(PPOSelfPlayTrainer):
         self.net = (acktr_conv_init(b, a, seed=seed, device=self.device)
                     if net == "conv" else
                     acktr_init(4 * b * b, a, seed=seed, device=self.device))
+        if self.mesh is not None:
+            place_replicated(self.net, self.mesh)
         self.policy = self.net
         self._a2c_cfg = A2CConfig(gamma=self.acktr_cfg.gamma)
 
@@ -82,8 +89,8 @@ class ACKTRSelfPlayTrainer(PPOSelfPlayTrainer):
         metrics = acktr_update(self.net, obs, rollout.legal.reshape(k, -1),
                                rollout.action.reshape(k),
                                returns.reshape(k), self.acktr_cfg,
-                               self.draws)
-        metrics["episodes"] = rollout.done.sum()
+                               self.draws, mesh=self.mesh)
+        metrics["episodes"], = global_sums([rollout.done.sum()], self.mesh)
         self._sync()
         metrics["collect_seconds"] = t1 - t0
         metrics["update_seconds"] = time.perf_counter() - t1
@@ -91,7 +98,9 @@ class ACKTRSelfPlayTrainer(PPOSelfPlayTrainer):
 
     def save(self, path: str) -> None:
         """The update count and the agent's tree, as JAX's trainer writes
-        them (``opt_state`` empty)."""
+        them (``opt_state`` empty); on a mesh rank 0 alone writes."""
+        if not self.is_main:
+            return
         save_checkpoint(path, self.update_count, self.net.flax_tree(), {})
 
     def load(self, path: str) -> None:

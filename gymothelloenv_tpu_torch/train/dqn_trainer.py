@@ -75,7 +75,8 @@ from gymothelloenv_tpu_torch.utils.checkpoint import (load_checkpoint,
 from gymothelloenv_tpu_torch.utils.device import (resolve_device,
                                                   use_float32)
 
-UNPORTED = "multi-device training is ROADMAP.md queue 1 item 13"
+UNPORTED = ("multi-device DQN and Rainbow training is ROADMAP.md queue 1 "
+            "item 13b")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -40,6 +40,10 @@ from gymothelloenv_tpu_torch.agents.gail import (ExpertDataset, GAILConfig,
 from gymothelloenv_tpu_torch.agents.ppo import Adam, ppo_update
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
 from gymothelloenv_tpu_torch.ops.shuffle import draw_words
+from gymothelloenv_tpu_torch.parallel.sharding import (all_reduce_sum,
+                                                       global_sums,
+                                                       owned_rows,
+                                                       place_replicated)
 from gymothelloenv_tpu_torch.train.a2c_trainer import check_feed_forward
 from gymothelloenv_tpu_torch.train.ppo_trainer import PPOSelfPlayTrainer
 from gymothelloenv_tpu_torch.train.self_play import collect_rollout
@@ -58,8 +62,14 @@ class GAILRunConfig:
 
 class GAILPPOTrainer(PPOSelfPlayTrainer):
     """PPO self-play whose environment reward is replaced by the GAIL
-    discriminator's signal (main.py:141-155).  ``device`` as the base
-    trainer's; ``mesh`` raises there."""
+    discriminator's signal (main.py:141-155).  ``device`` and ``mesh`` as
+    the base trainer's.  On a mesh the discriminator is replicated: each
+    step's policy rows are drawn over the global rollout (the same draw
+    on every rank), every rank contributes the rows it holds to one
+    all-reduce that gives all ranks all rows, and every rank takes the
+    same step; the relabel runs on each rank's games with the running
+    return moments merged over the ranks; the PPO update is the base
+    trainer's mesh update."""
 
     def __init__(self, expert_path: str, gail_cfg: GAILConfig = None,
                  gail_run: GAILRunConfig = None, **kw):
@@ -75,10 +85,12 @@ class GAILPPOTrainer(PPOSelfPlayTrainer):
         self._num_actions = self.env_cfg.num_actions
         self._sa_dim = 4 * b * b + self._num_actions
         self.gail_state = gail_init(self.gail_cfg, self._sa_dim,
-                                    self.run_cfg.num_envs,
+                                    self.local_envs,
                                     self.run_cfg.seed + 1, self.device)
+        if self.mesh is not None:
+            place_replicated(self.gail_state.net, self.mesh)
         self._eye = np.eye(self._num_actions, dtype=np.float32)
-        self._last_done = torch.zeros(self.run_cfg.num_envs,
+        self._last_done = torch.zeros(self.local_envs,
                                       dtype=torch.bool, device=self.device)
 
     def bc_warmstart(self, updates: int, batch_size: int = 512,
@@ -132,6 +144,21 @@ class GAILPPOTrainer(PPOSelfPlayTrainer):
     def _do_update(self) -> dict:
         return self.gail_update(self.sample_expert())
 
+    def _policy_rows(self, policy_sa: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+        """The rows ``idx`` of the (T * N, D) policy rows: this process's
+        own, or on a mesh the global rollout's, each rank filling the
+        rows its games hold and one all-reduce summing them (the other
+        ranks' entries are zeros, so the sum is exact)."""
+        if self.mesh is None:
+            return policy_sa[idx]
+        mine, local = owned_rows(idx, self.run_cfg.num_envs, self.mesh)
+        rows = torch.zeros((idx.shape[0], policy_sa.shape[1]),
+                           dtype=policy_sa.dtype, device=policy_sa.device)
+        rows[mine] = policy_sa[local]
+        all_reduce_sum([rows], self.mesh)
+        return rows
+
     def gail_update(self, expert_sa: torch.Tensor, words=None) -> dict:
         """One GAIL update on ``expert_sa`` ((gail_epoch, M, sa_dim) rows):
         collect, ``gail_epoch`` discriminator steps, the sequential
@@ -159,9 +186,10 @@ class GAILPPOTrainer(PPOSelfPlayTrainer):
         for e_sa in expert_sa:
             # Policy rows with replacement (uniform over the T*N rows), a
             # documented divergence from the vendored DataLoader's pass.
-            idx = self.draws.row_indices(m, T * N, self.device)
+            idx = self.draws.row_indices(m, T * run.num_envs, self.device)
             self.gail_state, dloss = gail_discriminator_update(
-                self.gail_state, cfg, e_sa, policy_sa[idx], self.draws)
+                self.gail_state, cfg, e_sa, self._policy_rows(policy_sa, idx),
+                self.draws)
             dlosses.append(dloss)
         self._sync()
         t2 = time.perf_counter()
@@ -171,8 +199,8 @@ class GAILPPOTrainer(PPOSelfPlayTrainer):
         sa_t = policy_sa.reshape(T, N, -1)
         rewards = []
         for t in range(T):
-            self.gail_state, r = gail_predict_reward(self.gail_state, cfg,
-                                                     sa_t[t], masks[t])
+            self.gail_state, r = gail_predict_reward(
+                self.gail_state, cfg, sa_t[t], masks[t], mesh=self.mesh)
             rewards.append(r)
         rewards = torch.stack(rewards)
         rollout = dataclasses.replace(rollout, reward=rewards)
@@ -182,11 +210,18 @@ class GAILPPOTrainer(PPOSelfPlayTrainer):
             words = draw_words(self.shuffle_generator,
                                self.ppo_cfg.ppo_epochs)
         metrics = ppo_update(self.net, self.optimizer, rollout, bootstrap,
-                             words, self.ppo_cfg)
+                             words, self.ppo_cfg, mesh=self.mesh)
         self._last_done = rollout.done[-1]
         metrics["disc_loss"] = torch.stack(dlosses).mean()
-        metrics["gail_reward"] = rewards.mean()
-        metrics["episodes"] = rollout.done.sum()
+        if self.mesh is None:
+            metrics["gail_reward"] = rewards.mean()
+            metrics["episodes"] = rollout.done.sum()
+        else:
+            total, episodes = global_sums(
+                [rewards.sum(), rollout.done.sum()], self.mesh)
+            metrics["gail_reward"] = total / (rewards.numel()
+                                              * self.mesh.world)
+            metrics["episodes"] = episodes
         self._sync()
         metrics.update(collect_seconds=t1 - t0, disc_seconds=t2 - t1,
                        relabel_seconds=t3 - t2,

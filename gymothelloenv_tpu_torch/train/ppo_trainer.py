@@ -54,13 +54,17 @@ from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
 from gymothelloenv_tpu_torch.models.nets import (FrameStackCell, PolicyNet,
                                                  params_net)
 from gymothelloenv_tpu_torch.ops.shuffle import draw_words
+from gymothelloenv_tpu_torch.parallel.sharding import (check_data_mesh,
+                                                       global_sums, is_main,
+                                                       mesh_device,
+                                                       place_replicated)
 from gymothelloenv_tpu_torch.policies import scripted
 from gymothelloenv_tpu_torch.policies.scripted import (expand_legal,
                                                        greedy_policy,
                                                        random_policy)
 from gymothelloenv_tpu_torch.train import tournament
 from gymothelloenv_tpu_torch.train.self_play import (
-    LEAF_SLICE, NEG, Draws, collect_rollout,
+    LEAF_SLICE, NEG, Draws, ShardedDraws, collect_rollout,
     collect_rollout_recurrent, collect_rollout_time_limited,
     make_lookahead_override, node_values, selfplay_init,
     selfplay_init_recurrent)
@@ -539,8 +543,19 @@ def net_lookahead_policy(net: PolicyNet, cfg: EnvConfig, depth: int = 1,
 
 class PPOSelfPlayTrainer:
     """``device``: where the games, the net and the update run (``None``:
-    the current CUDA card; raises without one).  ``mesh`` raises (ROADMAP.md
-    queue 1 item 13)."""
+    the current CUDA card, or the mesh's device; raises without one).
+
+    ``mesh``: a ``parallel.DataMesh`` for data-parallel training, one
+    process a rank (JAX's ``mesh``: the game batch sharded over ``data``,
+    the params replicated).  ``num_envs`` is the global batch; this rank
+    plays its ``num_envs / world`` games with the collector's draws made
+    at the global shape (``train.self_play.ShardedDraws``), so a world-N
+    rollout is the world-1 rollout game for game, and the update computes
+    the world-1 update (``agents.ppo.ppo_update(mesh=)``).  The params
+    start as rank 0's (a broadcast) and stay replicated; evaluation runs
+    whole on every rank (as JAX's replicated evaluation), and only rank 0
+    logs and writes checkpoints.  Another kind of mesh raises
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 13b)."""
 
     def __init__(self, env_cfg: EnvConfig = None,
                  ppo_cfg: PPOConfig = None,
@@ -550,10 +565,7 @@ class PPOSelfPlayTrainer:
         self.ppo_cfg = ppo_cfg or PPOConfig()
         self.run_cfg = run_cfg or SelfPlayConfig()
         self.log_fn = log_fn
-        if mesh is not None:
-            raise NotImplementedError("multi-device training (mesh) is not "
-                                      "ported yet: ROADMAP.md queue 1 "
-                                      "item 13")
+        self.mesh = None if mesh is None else check_data_mesh(mesh)
         run = self.run_cfg
         # JAX's guards and wording (ppo_trainer.py:573-601, :710-726).
         if run.opponent_pool > 0 and run.pool_interval < 1:
@@ -593,11 +605,14 @@ class PPOSelfPlayTrainer:
             raise ValueError("lookahead_mix < 1 is incompatible with "
                              "chain_updates > 1 (the chain bakes one "
                              "collection mode)")
-        self.device = resolve_device(device)
+        self.device = mesh_device(self.mesh, device)
         use_float32()
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass "
                                "device='cpu' to train on the CPU")
+        # This rank's games (all of them without a mesh).
+        self.local_envs = (run.num_envs if self.mesh is None
+                           else self.mesh.shard(run.num_envs)[0])
         seed = run.seed
         self.net = make_network(self.env_cfg, run.hidden_size,
                                 run.width_mult, seed, self.device,
@@ -614,9 +629,13 @@ class PPOSelfPlayTrainer:
         self._split_fns = (make_split_fns(self.net) if run.recurrent
                            else None)
         self.optimizer = self._make_optimizer()
+        if self.mesh is not None:
+            place_replicated(self.net, self.mesh)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self.shuffle_generator = torch.Generator().manual_seed(seed)
-        self.draws = Draws(self.generator)
+        self.draws = (Draws(self.generator) if self.mesh is None else
+                      ShardedDraws(Draws(self.generator), self.mesh,
+                                   run.num_envs))
         self._override = (make_lookahead_override(self.env_cfg,
                                                   run.lookahead_tau)
                           if run.lookahead_collect else None)
@@ -626,6 +645,11 @@ class PPOSelfPlayTrainer:
         self.pool: list = []
         self._pool_rng = pyrandom.Random(seed)
         self.anchors = [self._load_anchor(path) for path in run.pool_anchors]
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this process logs and writes checkpoints."""
+        return is_main(self.mesh)
 
     def _make_optimizer(self):
         """The update's optimizer over the net's parameters (PPO's clipped,
@@ -678,18 +702,18 @@ class PPOSelfPlayTrainer:
             opp = self._draw_opponent() if run.opponent_pool > 0 else None
             if self._rec_like:
                 self.sp_state = selfplay_init_recurrent(
-                    self.policy, self.env_cfg, run.num_envs,
+                    self.policy, self.env_cfg, self.local_envs,
                     self._state_size, self.draws, run.init_rand_steps,
                     opp_net=opp)
                 return
             self.sp_state = selfplay_init(
-                self.net, self.env_cfg, run.num_envs, self.draws,
+                self.net, self.env_cfg, self.local_envs, self.draws,
                 run.init_rand_steps, opp_net=opp,
                 act_override=self._override)
             if self._time_limited:
                 # The init state's pending decision is ply 1.
                 self.sp_state = (self.sp_state, torch.ones(
-                    run.num_envs, dtype=torch.int32, device=self.device))
+                    self.local_envs, dtype=torch.int32, device=self.device))
 
     def _draw_opponent(self) -> torch.nn.Module:
         """Uniform draw over the anchors and the snapshot ring (JAX
@@ -758,7 +782,7 @@ class PPOSelfPlayTrainer:
             metrics = ppo_update_recurrent(
                 self.policy, self.optimizer, rollout, h0, masks, bootstrap,
                 ppo_cfg, generator=self.shuffle_generator,
-                split_fns=self._split_fns)
+                split_fns=self._split_fns, mesh=self.mesh)
         elif self._time_limited:
             sp, elapsed = self.sp_state
             sp, elapsed, rollout, bad, bootstrap = \
@@ -772,8 +796,8 @@ class PPOSelfPlayTrainer:
             words = draw_words(self.shuffle_generator, ppo_cfg.ppo_epochs)
             metrics = ppo_update(self.net, self.optimizer, rollout,
                                  bootstrap, words, ppo_cfg,
-                                 bad_transition=bad)
-            extra["truncations"] = bad.sum()
+                                 bad_transition=bad, mesh=self.mesh)
+            extra["truncations"], = global_sums([bad.sum()], self.mesh)
         else:
             self.sp_state, rollout, bootstrap = collect_rollout(
                 self.net, self.sp_state, self.env_cfg, run.num_steps,
@@ -783,11 +807,11 @@ class PPOSelfPlayTrainer:
             t1 = time.perf_counter()
             words = draw_words(self.shuffle_generator, ppo_cfg.ppo_epochs)
             metrics = ppo_update(self.net, self.optimizer, rollout,
-                                 bootstrap, words, ppo_cfg)
+                                 bootstrap, words, ppo_cfg, mesh=self.mesh)
         metrics.update(extra)
-        episodes = rollout.done.sum()
-        metrics["episode_return"] = (rollout.reward.sum()
-                                     / episodes.clamp(min=1))
+        episodes, returns = global_sums(
+            [rollout.done.sum(), rollout.reward.sum()], self.mesh)
+        metrics["episode_return"] = returns / episodes.clamp(min=1)
         metrics["episodes"] = episodes
         self._sync()
         metrics["collect_seconds"] = t1 - t0
@@ -865,6 +889,8 @@ class PPOSelfPlayTrainer:
         return results
 
     def _log(self, step: int, metrics: dict) -> None:
+        if not self.is_main:
+            return
         if self.log_fn:
             self.log_fn(step, metrics)
         else:
@@ -873,7 +899,10 @@ class PPOSelfPlayTrainer:
 
     def save(self, path: str) -> None:
         """Write the update count, the params and the optimizer state as
-        the JAX trainer does (``save_checkpoint``)."""
+        the JAX trainer does (``save_checkpoint``); on a mesh rank 0
+        alone writes."""
+        if not self.is_main:
+            return
         to_tree = functools.partial(flax_tree, self.net)
         save_checkpoint(path, self.update_count, to_tree(),
                         self.optimizer.to_optax_state(to_tree))

@@ -13,7 +13,7 @@ Rainbow's hooks:
 
 ``RainbowConfig`` carries the fields the collection loop reads from
 ``DQNConfig``.  ``mesh`` and ``replay_sharding="per-shard"`` raise
-(ROADMAP.md queue 1 item 13), as the DQN trainer's do.
+(ROADMAP.md queue 1 item 13b), as the DQN trainer's do.
 """
 
 from __future__ import annotations

@@ -23,7 +23,8 @@ protagonist's stored ``action`` and ``logp`` are the policy's (or the
 override's) even when the executed ply was the random one.
 
 JAX's ``lax.while_loop`` in ``advance_opponent`` is a host loop here with
-one ``.any()`` read per iteration, bounded by ``MAX_ADVANCE_ITERS``.  The
+one ``.any()`` read per iteration (over every rank's games on a mesh,
+``batch_any``), bounded by ``MAX_ADVANCE_ITERS``.  The
 collectors read their engine from ``core.engine.get_engine(cfg,
 force_plane)`` as JAX's do, and the phase helpers take it from the
 state's layout (``engine_of``).  On 8x8 the game batch stays in bitboard
@@ -45,7 +46,8 @@ through its decisions for a stateful policy ``net(obs, h, mask) ->
 Randomness: one explicit ``torch.Generator`` (``Draws``) gives the colours,
 the random-opening counts, one inverse-CDF uniform per row per sampled ply
 and one legal-move index per row per ply with random openings;
-``InjectedDraws`` replays given ones (parity tests).
+``InjectedDraws`` replays given ones (parity tests); ``ShardedDraws``
+gives one rank of a data-parallel mesh its slice of the global draws.
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ from gymothelloenv_tpu_torch.core.featurize import make_state
 from gymothelloenv_tpu_torch.core.state import EnvConfig, index_games
 from gymothelloenv_tpu_torch.envs.bit_vector_env import draw_rand_left
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
+from gymothelloenv_tpu_torch.parallel.sharding import global_any
 from gymothelloenv_tpu_torch.policies.scripted import expand_legal
 
 # Opponent plies in a row before the collector gives up: no legal game has
@@ -121,7 +124,19 @@ class Draws:
     def legal_index(self, counts: torch.Tensor) -> torch.Tensor:
         """int64 index of the random legal move among each row's
         ``counts`` legal moves, uniform in ``[0, max(count, 1))``."""
-        return bb.uniform_index(counts, self.generator)
+        return self.legal_pick(counts, self.legal_draw(counts.shape,
+                                                       counts.device))
+
+    def legal_draw(self, shape, device) -> torch.Tensor:
+        """The draw of ``legal_index``'s rows, made before their counts
+        are known: float64 uniforms in [0, 1)."""
+        return torch.rand(shape, generator=self.generator, device=device,
+                          dtype=torch.float64)
+
+    @staticmethod
+    def legal_pick(counts: torch.Tensor, draw: torch.Tensor) -> torch.Tensor:
+        """Each row's move index from its ``legal_draw`` and count."""
+        return bb.uniform_index(counts, u=draw)
 
     def replay_uniforms(self, n: int, device) -> torch.Tensor:
         """float32 (n,) in [0, 1), one a sampled replay row
@@ -143,6 +158,84 @@ class Draws:
         """float32 (n,) in [0, 1): GAIL's mixup weights of a gradient
         penalty."""
         return torch.rand(n, generator=self.generator, device=device)
+
+
+class ShardedDraws:
+    """The draws of one rank of a data-parallel mesh: every per-game draw
+    of ``inner`` (a ``Draws`` over the one seeded generator, the same on
+    every rank, or an ``InjectedDraws`` of global draws) is made at the
+    global batch's shape and this rank keeps its games' slice, so a
+    world-N collection draws exactly what a world-1 one does, game for
+    game.  A draw of ``rows * n_local`` values (a (T, n) rollout's
+    flattened rows) is made as ``(rows, N)`` and sliced on the games
+    axis.  Draws that are not per game (replay rows, GAIL's policy rows
+    and mixup weights) pass through whole: every rank draws all of them.
+    ``any`` asks every rank (``global_any``), so the opponent loops run
+    as many iterations everywhere as at world 1."""
+
+    def __init__(self, inner, mesh, num_envs: int):
+        self.inner = inner
+        self.mesh = mesh
+        self.num_envs = num_envs
+        self.per, self.offset = mesh.shard(num_envs)
+
+    def _rows(self, n: int) -> int:
+        if n % self.per:
+            raise ValueError(f"a per-game draw of {n} is not whole rows of "
+                             f"this rank's {self.per} games")
+        return n // self.per
+
+    def _mine(self, full: torch.Tensor, rows: int) -> torch.Tensor:
+        return full.reshape(rows, self.num_envs)[
+            :, self.offset:self.offset + self.per].reshape(-1)
+
+    def colors(self, n: int, device) -> torch.Tensor:
+        rows = self._rows(n)
+        return self._mine(self.inner.colors(rows * self.num_envs, device),
+                          rows)
+
+    def uniforms(self, n: int, device) -> torch.Tensor:
+        rows = self._rows(n)
+        return self._mine(self.inner.uniforms(rows * self.num_envs, device),
+                          rows)
+
+    def rand_left(self, n: int, init_rand_steps: int,
+                  device) -> torch.Tensor:
+        rows = self._rows(n)
+        return self._mine(self.inner.rand_left(
+            rows * self.num_envs, init_rand_steps, device), rows)
+
+    def legal_index(self, counts: torch.Tensor) -> torch.Tensor:
+        rows = self._rows(counts.numel())
+        draw = self.inner.legal_draw((rows * self.num_envs,), counts.device)
+        return self.inner.legal_pick(
+            counts, self._mine(draw, rows).reshape(counts.shape))
+
+    def normals(self, n: int, device) -> torch.Tensor:
+        rows = self._rows(n)
+        return self._mine(self.inner.normals(rows * self.num_envs, device),
+                          rows)
+
+    def replay_uniforms(self, n: int, device) -> torch.Tensor:
+        return self.inner.replay_uniforms(n, device)
+
+    def row_indices(self, n: int, high: int, device) -> torch.Tensor:
+        return self.inner.row_indices(n, high, device)
+
+    def mix_uniforms(self, n: int, device) -> torch.Tensor:
+        return self.inner.mix_uniforms(n, device)
+
+    def any(self, mask: torch.Tensor) -> bool:
+        return global_any(mask, self.mesh)
+
+
+def batch_any(mask: torch.Tensor, draws) -> bool:
+    """Whether ``mask`` holds for any game of the batch: of every rank's
+    games under ``ShardedDraws`` (one all-reduce), else of this
+    process's (one host read)."""
+    if isinstance(draws, ShardedDraws):
+        return draws.any(mask)
+    return bool(mask.any())
 
 
 class InjectedDraws:
@@ -183,8 +276,14 @@ class InjectedDraws:
         return next(self._rand_left).to(device=device, dtype=torch.int64)
 
     def legal_index(self, counts: torch.Tensor) -> torch.Tensor:
-        return next(self._legal_index).to(device=counts.device,
-                                          dtype=torch.int64)
+        return self.legal_draw(counts.shape, counts.device)
+
+    def legal_draw(self, shape, device) -> torch.Tensor:
+        return next(self._legal_index).to(device=device, dtype=torch.int64)
+
+    @staticmethod
+    def legal_pick(counts: torch.Tensor, draw: torch.Tensor) -> torch.Tensor:
+        return draw
 
     def replay_uniforms(self, n: int, device) -> torch.Tensor:
         return next(self._replay_uniforms).to(device=device,
@@ -319,7 +418,7 @@ def advance_opponent(net: torch.nn.Module, env,
     ``MAX_ADVANCE_ITERS`` plies."""
     for i in range(MAX_ADVANCE_ITERS + 1):
         needs = ~env.terminated & (env.turn != pcolor)
-        if not bool(needs.any()):
+        if not batch_any(needs, draws):
             return env, rand_left, i + 1
         if i == MAX_ADVANCE_ITERS:
             break
@@ -566,7 +665,7 @@ def advance_opponent_rec(net: torch.nn.Module, env,
     h_opp, host_syncs)``."""
     for i in range(MAX_ADVANCE_ITERS + 1):
         needs = ~env.terminated & (env.turn != pcolor)
-        if not bool(needs.any()):
+        if not batch_any(needs, draws):
             return env, rand_left, h_opp, i + 1
         if i == MAX_ADVANCE_ITERS:
             break

@@ -46,11 +46,15 @@ from gymothelloenv_tpu_torch.models.convert import (flax_tree,
                                                     tensors_from_flax)
 from gymothelloenv_tpu_torch.models.distributions import MaskedCategorical
 from gymothelloenv_tpu_torch.ops.shuffle import draw_words
+from gymothelloenv_tpu_torch.parallel.sharding import (check_data_mesh,
+                                                       global_sums, is_main,
+                                                       mesh_device,
+                                                       place_replicated)
 from gymothelloenv_tpu_torch.policies.scripted import (greedy_policy,
                                                        random_policy)
 from gymothelloenv_tpu_torch.train import tournament
 from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
-from gymothelloenv_tpu_torch.train.self_play import (Draws,
+from gymothelloenv_tpu_torch.train.self_play import (Draws, ShardedDraws,
                                                      collector_engine,
                                                      masked_step,
                                                      reset_done)
@@ -237,37 +241,48 @@ def collect_ts_rollout(net_t: torch.nn.Module, net_s: torch.nn.Module,
             (_stack(rec_s), torch.stack(w_s).to(torch.float32), boot_s))
 
 
-UNPORTED = "multi-device training (mesh) is ROADMAP.md queue 1 item 13"
-
-
 class TeacherStudentTrainer:
     """``device``: where the games, both nets and their updates run
-    (``None``: the current CUDA card; raises without one).  ``mesh``
-    raises (ROADMAP.md queue 1 item 13)."""
+    (``None``: the current CUDA card, or the mesh's; raises without one).
+
+    ``mesh``: a ``parallel.DataMesh`` (JAX teacher_student.py:271-397):
+    ``num_envs`` is the global batch, this rank plays its share with the
+    draws made at the global shape (``train.self_play.ShardedDraws``),
+    both nets start as rank 0's and each role's weighted update sums its
+    gradients over the ranks (``agents.ppo.ppo_update(mesh=)``, two
+    parameter sets, two gradient all-reduces a minibatch).  Evaluation
+    runs whole on every rank; rank 0 alone logs and saves.  Another kind
+    of mesh raises ``NotImplementedError`` (ROADMAP.md queue 1 item
+    13b)."""
 
     def __init__(self, env_cfg: EnvConfig = None, ppo_cfg: PPOConfig = None,
                  run_cfg: TeacherStudentConfig = None, log_fn=None,
                  mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(UNPORTED)
+        self.mesh = None if mesh is None else check_data_mesh(mesh)
         self.env_cfg = env_cfg or EnvConfig(num_disk_as_reward=True)
         # Reference overrides: lr 5e-6 (ppo_run_teacher_vs_student.py:
         # 64-74).
         self.ppo_cfg = ppo_cfg or PPOConfig(lr=5e-6)
         self.run_cfg = run_cfg or TeacherStudentConfig()
         self.log_fn = log_fn
-        self.device = resolve_device(device)
+        self.device = mesh_device(self.mesh, device)
         use_float32()
         run = self.run_cfg
+        self.local_envs = (run.num_envs if self.mesh is None
+                           else self.mesh.shard(run.num_envs)[0])
         self.net_t, self.net_s = (
             make_network(self.env_cfg, run.hidden_size, run.width_mult,
                          seed, self.device).train()
             for seed in (2 * run.seed, 2 * run.seed + 1))
+        if self.mesh is not None:
+            place_replicated([self.net_t, self.net_s], self.mesh)
         self.opt_t = make_optimizer(self.ppo_cfg, self.net_t.parameters())
         self.opt_s = make_optimizer(self.ppo_cfg, self.net_s.parameters())
         self.generator = torch.Generator(self.device).manual_seed(run.seed)
         self.shuffle_generator = torch.Generator().manual_seed(run.seed)
-        self.draws = Draws(self.generator)
+        self.draws = (Draws(self.generator) if self.mesh is None else
+                      ShardedDraws(Draws(self.generator), self.mesh,
+                                   run.num_envs))
         self.ts_state = None
         self.chunk_count = 0
         self.win_avg = {"rand": 0.0, "greedy": 0.0}
@@ -284,7 +299,7 @@ class TeacherStudentTrainer:
     def ensure_initialized(self) -> None:
         if self.ts_state is None:
             run = self.run_cfg
-            self.ts_state = ts_init(self.env_cfg, run.num_envs,
+            self.ts_state = ts_init(self.env_cfg, self.local_envs,
                                     run.init_rand_steps, self.draws,
                                     device=self.device)
 
@@ -315,18 +330,20 @@ class TeacherStudentTrainer:
         if run.train_teacher:
             m_t = ppo_update(self.net_t, self.opt_t, roll_t, boot_t,
                              draw_words(self.shuffle_generator,
-                                        cfg.ppo_epochs), cfg, weights=w_t)
+                                        cfg.ppo_epochs), cfg, weights=w_t,
+                             mesh=self.mesh)
             metrics.update({f"teacher_{k}": v for k, v in m_t.items()})
         m_s = ppo_update(self.net_s, self.opt_s, roll_s, boot_s,
                          draw_words(self.shuffle_generator, cfg.ppo_epochs),
-                         cfg, weights=w_s)
+                         cfg, weights=w_s, mesh=self.mesh)
         metrics.update({f"student_{k}": v for k, v in m_s.items()})
-        episodes = (roll_s.done & (w_s > 0)).sum()
-        metrics["student_episode_return"] = (
-            (roll_s.reward * w_s).sum() / episodes.clamp(min=1))
+        episodes, returns, t_records, s_records = global_sums(
+            [(roll_s.done & (w_s > 0)).sum(), (roll_s.reward * w_s).sum(),
+             w_t.sum(), w_s.sum()], self.mesh)
+        metrics["student_episode_return"] = returns / episodes.clamp(min=1)
         metrics["episodes"] = episodes
-        metrics["teacher_records"] = w_t.sum()
-        metrics["student_records"] = w_s.sum()
+        metrics["teacher_records"] = t_records
+        metrics["student_records"] = s_records
         self._sync()
         metrics["collect_seconds"] = t1 - t0
         metrics["update_seconds"] = time.perf_counter() - t1
@@ -390,7 +407,10 @@ class TeacherStudentTrainer:
 
     def save(self, path: str) -> None:
         """``path + ".teacher"`` and ``path + ".student"``: the chunk count,
-        each role's params and Adam state, as JAX's trainer writes them."""
+        each role's params and Adam state, as JAX's trainer writes them;
+        on a mesh rank 0 alone writes."""
+        if not is_main(self.mesh):
+            return
         for suffix, net, opt in ((".teacher", self.net_t, self.opt_t),
                                  (".student", self.net_s, self.opt_s)):
             to_tree = functools.partial(flax_tree, net)
@@ -411,6 +431,8 @@ class TeacherStudentTrainer:
         self.chunk_count = step
 
     def _log(self, step: int, metrics: dict) -> None:
+        if not is_main(self.mesh):
+            return
         if self.log_fn:
             self.log_fn(step, metrics)
         else:

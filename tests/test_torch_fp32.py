@@ -78,3 +78,32 @@ def test_stateful_eval_checkpoint_leaves_tf32_off(tf32_on):
                               "--games", "2", "--device", "cpu"])
     assert "recurrent" in out.getvalue().splitlines()[0]
     assert _flags() == (False, False)
+
+
+WIDE2 = os.path.join(os.path.dirname(REC2000), "ppo_wide2_4k.msgpack")
+
+
+@pytest.mark.parametrize("entry", ["replay", "enjoy"])
+def test_replay_and_enjoy_leave_tf32_off(tf32_on, entry, tmp_path):
+    """The replay and enjoy CLIs load their nets through
+    ``load_eval_policy``, which switches TF32 off."""
+    from gymothelloenv_tpu_torch.cli import enjoy, replay
+    with contextlib.redirect_stdout(io.StringIO()):
+        if entry == "replay":
+            replay.main(["--black", f"net:{WIDE2}", "--white", "greedy",
+                         "--device", "cpu", "--deterministic",
+                         "--out", str(tmp_path / "r.html")])
+        else:
+            enjoy.main(["--load", WIDE2, "--device", "cpu",
+                        "--deterministic"])
+    assert _flags() == (False, False)
+
+
+def test_mesh_trainer_leaves_tf32_off(tf32_on):
+    """Each rank's trainer under a mesh switches TF32 off as the
+    single-process one does."""
+    from gymothelloenv_tpu_torch.parallel import make_mesh
+    PPOSelfPlayTrainer(run_cfg=SelfPlayConfig(num_envs=4, num_steps=2,
+                                              hidden_size=8),
+                       mesh=make_mesh(backend="gloo", device="cpu"))
+    assert _flags() == (False, False)

@@ -95,3 +95,21 @@ def test_simple_ppo_gail_compat_modules_are_checked_and_import(rel):
     assert rel in {os.path.relpath(p, PORT) for p in _port_files()}
     module = "gymothelloenv_tpu_torch." + rel[:-3].replace("/", ".")
     importlib.import_module(module.removesuffix(".__init__"))
+
+
+_SLICE_12 = ("utils/render.py", "utils/logging.py", "utils/profiling.py",
+             "cli/replay.py", "cli/enjoy.py", "cli/sweep.py",
+             "cli/visualize.py", "scripts/convert_expert_h5.py",
+             "parallel/__init__.py", "parallel/sharding.py",
+             "parallel/multihost.py", "parallel/dryrun.py")
+
+
+@pytest.mark.parametrize("rel", _SLICE_12)
+def test_cli_utility_and_parallel_modules_are_checked_and_import(rel):
+    """The remaining CLIs and utilities and the data-parallel layer are
+    among the files above and import without a card, a process group,
+    matplotlib or h5py (nothing is built or initialised at import)."""
+    import importlib
+    assert rel in {os.path.relpath(p, PORT) for p in _port_files()}
+    module = "gymothelloenv_tpu_torch." + rel[:-3].replace("/", ".")
+    importlib.import_module(module.removesuffix(".__init__"))
