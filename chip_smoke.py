@@ -182,6 +182,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -455,6 +456,39 @@ DP_FAMILIES = ("ppo", "ppo_time_limited", "ppo_recurrent", "a2c", "acktr",
 DP_FAULTS = ("unreduced_grads", "local_moments")
 DP_ROLLOUT_N, DP_ROLLOUT_STEPS = 4096, 64
 DP_TIMEOUT_S = 300
+# [dp] (e)-(i), DQN and Rainbow under a mesh, per-shard replay and tensor
+# parallelism: (e) DQN at JAX job 60's widths (N DP_OFF_ENVS, batch
+# DQN_BATCH, train interval DQN_INTERVAL, PER, double, dueling, n-step 3,
+# a DQN_REPLAY ring), one chunk of DP_OFF_PLIES plies (cut from job 60's
+# 512 to fit the time) at world 1 under nccl against mesh=None; (f)
+# Rainbow at job 58's widths the same way; (g) (e) and (f) on the two
+# gloo ranks sharing the card, N / 2 games each, against (e) and (f): on
+# the rows (e) and (f) sampled each leaf within DP_PARAM_RTOL of its
+# largest change; sampling their own rows within DP_OFF_PARAM_RTOL; the
+# rings equal exactly, the ranks bit-equal; (h) both per-shard, the
+# union of the two
+# rings equal to (e)'s and (f)'s ring exactly; (i) make_sharded_train_step
+# on the 1 x 2 mesh of the two ranks, wide2 PPO (N DP_ENVS, T DP_STEPS),
+# one step, against world 1: each leaf within DP_PARAM_RTOL, every clip's
+# gradient norm within DP_TP_NORM_RTOL.  The planted faults of
+# DP_OFF_FAULTS (an update stepping on unreduced gradients, an insert
+# putting the gathered streams in reverse rank order) must fail (g)'s
+# gate, and
+# DP_TP_FAULT (a clip counting the split leaves twice) (i)'s.  NCCL puts
+# one rank on a card and this machine has one, so no part measures a
+# second GPU: the ranks share cuda:0 over gloo.
+DP_OFF_ENVS, DP_OFF_PLIES = 1024, 64
+DP_OFF_FAULTS = ("unreduced_offpolicy_grads", "reversed_ranks_insert")
+DP_TP_FAULT = "clip_counts_split_leaves_twice"
+DP_TP_NORM_RTOL = 1e-2
+# Sampling its own rows, a chunk's 128 PER updates turn the rounding of
+# a split batch into other rows (the priorities decide the next ones):
+# DQN's worst leaf parts by 9.030e-2 of its change on the card, run
+# after run, the size of the card's own run-to-run drift of (e) without
+# deterministic cuDNN (8.791e-2); on (e)'s rows the same ranks read
+# 3.5e-5, within DP_PARAM_RTOL.  The unreduced gradients' fault reads
+# 1.085, so the bound below lies between (PERF.md section 6).
+DP_OFF_PARAM_RTOL = 0.25
 DEVICE_TYPE = "cuda"
 
 
@@ -4224,12 +4258,14 @@ class _RecordedDraws:
 
     def __getattr__(self, name):
         fn = getattr(self.inner, name)
-        if name not in self.KINDS:
+        # A noisy net's noise replays as InjectedDraws' normals.
+        kind = "normals" if name == "noise" else name
+        if kind not in self.KINDS:
             return fn
 
         def recorded(*args, **kwargs):
             out = fn(*args, **kwargs)
-            self.log[name].append(out)
+            self.log[kind].append(out)
             return out
         return recorded
 
@@ -4810,9 +4846,15 @@ def _dp_phase(torch, tb, ro, legal_mask, step, dev):
     gloo ranks sharing the card, N / 2 games each, against (a); (c) the
     dryrun's small families world 1 vs 2; the planted faults (DP_FAULTS)
     against (a) and (c)'s world 1; (d) rollout_chunk_sharded over the two
-    ranks against the plain rollout on each slice.  (b), (c), the faults
-    and (d) run in one spawned cluster; a rank that fails fails the
-    phase."""
+    ranks against the plain rollout on each slice; (e) DQN and (f)
+    Rainbow at jobs 60's and 58's widths, one chunk cut to DP_OFF_PLIES
+    plies, nccl world 1 against mesh=None, one B1 launch a ply; (g) both
+    on the two gloo ranks, (h) both per-shard, (i) the tensor-parallel
+    PPO step on the ranks' 1 x 2 mesh, and the faults of DP_OFF_FAULTS and
+    DP_TP_FAULT against them (``_dp_offpolicy_gate``).  (b)-(d) and
+    (g)-(i) run in one spawned cluster; a rank that fails fails the
+    phase.  No part measures a second GPU: NCCL puts one rank on a card,
+    and the machine has one."""
     import torch.distributed as dist
     from gymothelloenv_tpu_torch.parallel import dryrun, make_mesh
     from gymothelloenv_tpu_torch.parallel.sharding import (
@@ -4823,7 +4865,11 @@ def _dp_phase(torch, tb, ro, legal_mask, step, dev):
     say(f"[dp] start: (a) world 1 under nccl, wide2 PPO N {DP_ENVS}, T "
         f"{DP_STEPS}, {DP_UPDATES} updates vs mesh=None; (b) 2 gloo ranks "
         f"on {dev}, N {DP_ENVS // 2} each; (c) dryrun {DP_FAMILIES} world 1 "
-        f"vs 2; (d) rollout_chunk_sharded N {DP_ROLLOUT_N} on 2 ranks")
+        f"vs 2; (d) rollout_chunk_sharded N {DP_ROLLOUT_N} on 2 ranks; (e) "
+        f"DQN and (f) Rainbow N {DP_OFF_ENVS}, {DP_OFF_PLIES} plies, world 1 "
+        "under nccl vs mesh=None; (g) both on 2 gloo ranks; (h) per-shard; "
+        "(i) make_sharded_train_step on 1 x 2; one card: no part measures "
+        "a second GPU")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         # (a) world 1 under nccl: every collective of the mesh path.
@@ -4841,6 +4887,16 @@ def _dp_phase(torch, tb, ro, legal_mask, step, dev):
             torch.cuda.synchronize()
             out["world1_seconds"] = time.perf_counter() - t0
             counts = _counts(legal_mask, step)
+            # (e), (f): one chunk of each off-policy family, nccl world 1.
+            off_nccl = {}
+            for fam in ("dqn", "rainbow"):
+                _zero_counts(legal_mask, step)
+                with _no_plain(tb) as off_plain:
+                    off_nccl[fam] = _dp_off_run(fam, mesh, dev,
+                                                _dp_off_size())
+                off_nccl[fam]["counts"] = _counts(legal_mask, step)
+                require(not off_plain, f"[dp] ({fam}) ran a plain ply: "
+                        f"{off_plain[:3]}")
         finally:
             dist.destroy_process_group()
         require(not plain_calls, f"[dp] ran a plain ply: {plain_calls[:3]}")
@@ -4864,19 +4920,53 @@ def _dp_phase(torch, tb, ro, legal_mask, step, dev):
                                again["state"], init)
         rel_a = _dp_rel("(a) nccl world 1 vs mesh=None", plain["state"],
                         nccl["state"], init)
+        off_none = {fam: _dp_off_run(fam, None, dev, _dp_off_size())
+                    for fam in ("dqn", "rainbow")}
+        off_init = {fam: _dp_off_run(fam, None, dev, _dp_off_size(),
+                                     chunk=False)["state"]
+                    for fam in ("dqn", "rainbow")}
+        rel_ef = {}
+        for part, fam in (("(e)", "dqn"), ("(f)", "rainbow")):
+            got, want = off_nccl[fam], off_none[fam]
+            c = got["counts"]
+            require(c["bit_step_launches"] == c["reset_launches"]
+                    == DP_OFF_PLIES, f"[dp] {part} {fam}: {c} for "
+                    f"{DP_OFF_PLIES} plies")
+            _require_no_k2(c["k2_launches"], f"dp {part}")
+            require(got["size"] == want["size"] > 0 and torch.equal(
+                got["rows"], want["rows"]), f"[dp] {part} {fam}: the "
+                "nccl world-1 ring differs from mesh=None's")
+            rel_ef[fam] = _dp_rel(f"{part} {fam} nccl world 1 vs mesh=None",
+                                  want["state"], got["state"],
+                                  off_init[fam])
+            say(f"[dp] {part} {fam} at N {DP_OFF_ENVS}, one chunk of "
+                f"{DP_OFF_PLIES} plies, {got['updates']} updates: nccl world "
+                f"1 = mesh=None, per leaf {rel_ef[fam]:.3e} of its largest "
+                f"change (rtol {DP_PARAM_RTOL}), rings equal ({got['size']} "
+                f"rows), {c['bit_step_launches']} B1 launches, "
+                f"{got['seconds']:.2f} s against {want['seconds']:.2f} s "
+                "without a mesh")
 
         # (b), (c), (d): one cluster of two gloo ranks on this card.
         expert = dryrun.write_expert(os.path.join(tmp, "expert.npz"))
+        rows_path = os.path.join(tmp, "offpolicy_rows.pt")
+        torch.save({f: off_nccl[f].pop("sampled") for f in off_nccl},
+                   rows_path)
+        for res in off_none.values():
+            res.pop("sampled")
         small = {"families": list(DP_FAMILIES), "updates": 1, "size": {},
                  "expert": expert}
         wide_ppo = {"families": ["ppo"], "updates": DP_UPDATES,
                     "size": dataclasses.asdict(wide)}
+        tp_size = {"size": dataclasses.asdict(wide)}
         args = {"runs": {"wide": wide_ppo, "small": small},
                 "rollout": {"num_games": DP_ROLLOUT_N,
                             "num_steps": DP_ROLLOUT_STEPS, "seed": SEED},
                 "faults": list(DP_FAULTS),
                 "fault_runs": {"wide": wide_ppo,
-                               "small": dict(small, families=["ppo"])}}
+                               "small": dict(small, families=["ppo"])},
+                "offpolicy": {"tp": tp_size, "size": _dp_off_size(),
+                              "rows": rows_path}}
         t0 = time.perf_counter()
         ranks = dryrun.spawn(2, "chip_smoke:dp_cluster_task", args,
                              backend="gloo",
@@ -4886,6 +4976,19 @@ def _dp_phase(torch, tb, ro, legal_mask, step, dev):
         out["cluster_seconds"] = time.perf_counter() - t0
         one = dryrun.families_task(make_mesh(backend="gloo", device=dev),
                                    dev, small)
+        one_tp = dryrun.tp_task(make_mesh(backend="gloo", device=dev), dev,
+                                tp_size)
+        tp_init = dryrun.tp_init_state(dev, wide)
+    out.update(_dp_offpolicy_gate(torch, ranks, off_nccl, off_init, one_tp,
+                                  tp_init))
+    out["offpolicy_world1"] = {
+        fam: dict(rel=rel_ef[fam], seconds=off_nccl[fam]["seconds"],
+                  seconds_no_mesh=off_none[fam]["seconds"],
+                  updates=off_nccl[fam]["updates"],
+                  rows=off_nccl[fam]["size"])
+        for fam in ("dqn", "rainbow")}
+    for k in ("bit_step_launches", "reset_launches", "k2_launches"):
+        counts[k] += sum(off_nccl[f]["counts"][k] for f in off_nccl)
     dryrun.check_replicated([r["wide"]["ppo"] for r in ranks])
     rel_b = _dp_rel("(b) 2 gloo ranks vs (a)", nccl["state"],
                     ranks[0]["wide"]["ppo"]["state"], init)
@@ -4948,6 +5051,7 @@ def _dp_phase(torch, tb, ro, legal_mask, step, dev):
                                              for r in ranks],
                    one_process_ms=one_ms, num_games=n,
                    num_steps=DP_ROLLOUT_STEPS)
+    out.update(counts)
     out.update(rel_a=rel_a, rel_b=rel_b, rel_repeat=rel_repeat,
                repeat_bit_equal=repeat_equal,
                deterministic_repeat_bit_equal=det_equal,
@@ -4955,7 +5059,8 @@ def _dp_phase(torch, tb, ro, legal_mask, step, dev):
                faults=faults, rollout=rollout,
                child_bit_step_launches=sum(
                    r[k][f]["bit_step_launches"] for r in ranks
-                   for k in ("wide", "small") for f in r[k]))
+                   for k in ("wide", "small") for f in r[k])
+               + sum(r["offpolicy"]["bit_step_launches"] for r in ranks))
     say(f"[dp] ok: (a) nccl world 1 = mesh=None, per leaf "
         f"{rel_a:.3e} of its largest change (rtol {DP_PARAM_RTOL}), "
         f"{counts['bit_step_launches']} B1 launches in "
@@ -5004,13 +5109,49 @@ def _dp_rel(what, want, got, init):
 
 @contextlib.contextmanager
 def _planted(fault):
-    """A data-parallel fault patched into agents/ppo.py for [dp]'s gate
-    to catch: ``unreduced_grads``, each rank steps on its own gradients
-    (the loss terms are still summed); ``local_moments``, each rank
-    normalises its advantages by its own games' moments."""
-    from gymothelloenv_tpu_torch.agents import ppo
-    from gymothelloenv_tpu_torch.parallel import sharding
-    if fault == "unreduced_grads":
+    """A parallel fault patched in for [dp]'s gates to catch:
+    ``unreduced_grads`` (agents/ppo.py), each rank steps on its own
+    gradients (the loss terms are still summed); ``local_moments``, each
+    rank normalises its advantages by its own games' moments;
+    ``unreduced_offpolicy_grads`` (agents/dqn.py), the DQN and Rainbow
+    update's own gradients; ``reversed_ranks_insert`` (the DQN trainer's
+    gather before the replicated insert), the ranks' streams in reverse
+    rank order;
+    ``DP_TP_FAULT`` (parallel/dp.py), the clip's norm counting the split
+    leaves' squares twice."""
+    from gymothelloenv_tpu_torch.agents import dqn, ppo
+    from gymothelloenv_tpu_torch.parallel import dp, sharding
+    from gymothelloenv_tpu_torch.train.dqn_trainer import DQNTrainer
+    module = ppo
+    if fault == "unreduced_offpolicy_grads":
+        module, name = dqn, "all_reduce_grads"
+
+        def fake(params, mesh, extra=()):
+            sharding.all_reduce_sum(list(extra), mesh)
+    elif fault == "reversed_ranks_insert":
+        module, name = DQNTrainer, "_gather_emissions"
+        real_gather = DQNTrainer._gather_emissions
+
+        def fake(self, ems):
+            # Each push's gathered streams in reverse rank order: world
+            # 1's rows, but not in its order.
+            rows = real_gather(self, ems)
+            per = rows[0].valid.shape[1] // self.mesh.world
+            order = [j for r in reversed(range(self.mesh.world))
+                     for j in range(r * per, (r + 1) * per)]
+            return [types.SimpleNamespace(**{
+                k: v[:, order] for k, v in vars(e).items()}) for e in rows]
+    elif fault == DP_TP_FAULT:
+        module, name = dp, "global_grad_norm"
+
+        def fake(params, sharded, mesh):
+            import torch
+            sq = [sum(float(p.grad.pow(2).sum()) for p, c in
+                      zip(params, sharded) if c == cut) for cut in (0, 1)]
+            split = torch.tensor([sq[1]], device=params[0].device)
+            sharding.all_reduce_sum([split], mesh, group="model")
+            return torch.sqrt(sq[0] + 2.0 * split[0])
+    elif fault == "unreduced_grads":
         name = "all_reduce_grads"
 
         def fake(params, mesh, extra=()):
@@ -5022,18 +5163,19 @@ def _planted(fault):
             return real(adv, weights)
     else:
         raise ValueError(f"unknown fault {fault!r}")
-    real = getattr(ppo, name)
-    setattr(ppo, name, fake)
+    real = getattr(module, name)
+    setattr(module, name, fake)
     try:
         yield
     finally:
-        setattr(ppo, name, real)
+        setattr(module, name, real)
 
 
 def dp_cluster_task(mesh, device, args):
     """[dp]'s ``parallel.dryrun.spawn`` task: ``dryrun.cluster_task``,
     then with each fault of ``args["faults"]`` planted, the runs of
-    ``args["fault_runs"]`` (``dryrun.families_task`` args by name)."""
+    ``args["fault_runs"]`` (``dryrun.families_task`` args by name); then
+    (g)-(i) and their faults (``_dp_offpolicy_task``)."""
     from gymothelloenv_tpu_torch.parallel import dryrun
     out = dryrun.cluster_task(mesh, device, args)
     out["faults"] = {}
@@ -5042,7 +5184,228 @@ def dp_cluster_task(mesh, device, args):
             out["faults"][fault] = {
                 name: dryrun.families_task(mesh, device, run)
                 for name, run in args["fault_runs"].items()}
+    out["offpolicy"] = _dp_offpolicy_task(mesh, device, args["offpolicy"])
     return out
+
+
+def _dp_off_size():
+    """(e)-(h)'s sizes, handed to the ranks with their task."""
+    return dict(envs=DP_OFF_ENVS, plies=DP_OFF_PLIES, replay=DQN_REPLAY,
+                dqn=(DQN_BATCH, DQN_INTERVAL),
+                rainbow=(RAINBOW_BATCH, RAINBOW_INTERVAL))
+
+
+def _dp_off_trainer(family, mesh, dev, size, pershard=False):
+    """(e)-(h)'s trainer (``size``: ``_dp_off_size()``): DQN at JAX job
+    60's widths or Rainbow at job 58's (N 1024, batch 4096, train interval
+    512, n-step 3, a 1M PER ring, no warm-up, seed 4), DP_OFF_PLIES plies
+    a chunk; on ``mesh`` (``None``: ``dev`` alone), per-shard if
+    asked."""
+    from gymothelloenv_tpu_torch.agents.dqn import DQNConfig
+    from gymothelloenv_tpu_torch.agents.rainbow import RainbowConfig
+    from gymothelloenv_tpu_torch.agents.replay import ReplayConfig
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train.dqn_trainer import (DQNRunConfig,
+                                                           DQNTrainer)
+    from gymothelloenv_tpu_torch.train.rainbow_trainer import RainbowTrainer
+    run = DQNRunConfig(num_envs=size["envs"], chunk_plies=size["plies"],
+                       seed=4, num_test_games=4, test_interval=10 ** 9,
+                       replay_sharding="per-shard" if pershard
+                       else "replicated")
+    rb = ReplayConfig(capacity=size["replay"], prioritized=True)
+    batch, interval = size[family]
+    kw = dict(log_fn=lambda *a: None, mesh=mesh,
+              device=None if mesh is not None else dev)
+    env = EnvConfig(num_disk_as_reward=True)
+    if family == "dqn":
+        return DQNTrainer(env, DQNConfig(
+            batch_size=batch, train_interval=interval, n_step=3,
+            double=True, dueling=True, initial_replay_size=0), rb, run, **kw)
+    return RainbowTrainer(env, RainbowConfig(
+        batch_size=batch, train_interval=interval, initial_replay_size=0),
+        rb, run, **kw)
+
+
+def _dp_off_run(family, mesh, dev, size, pershard=False, chunk=True,
+                rows=None):
+    """One chunk of ``_dp_off_trainer`` (none with ``chunk`` False) with
+    cuDNN's deterministic algorithms: the net's state (CPU), the ring's
+    live packed rows and priorities, its size, ``t``, the updates, the
+    seconds, the B1 launches and the rows each update sampled
+    (``sampled``, CPU).  ``rows``: such a list, the updates then taking
+    those rows instead of sampling.  Deterministic, because the default
+    weight gradient's run-to-run rounding, carried through a chunk's
+    128 PER updates (the priorities decide the next rows), read 8.791e-2
+    of a leaf's change between nccl world 1 and ``mesh=None``: the card's
+    drift, not the mesh path's arithmetic (PERF.md section 6)."""
+    import torch
+    from gymothelloenv_tpu_torch.agents import dqn, rainbow
+    from gymothelloenv_tpu_torch.agents.replay import ring_rows
+    from gymothelloenv_tpu_torch.ops.step import bit_step
+    tr = _dp_off_trainer(family, mesh, dev, size, pershard)
+    launches = bit_step.launches
+    module = dqn if family == "dqn" else rainbow
+    real_sample, sampled = module.replay_sample_idx, []
+    given = None if rows is None else iter(rows)
+
+    def sample(rb, cfg, u):
+        idx = (real_sample(rb, cfg, u) if given is None
+               else next(given).to(u.device))
+        sampled.append(idx)
+        return idx
+    module.replay_sample_idx = sample
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        metrics = tr.train_chunk() if chunk else {"updates": 0}
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = was
+        module.replay_sample_idx = real_sample
+    size = int(tr.replay.size)
+    return {"state": {f"net.{k}": v.detach().cpu().clone()
+                      for k, v in tr.agent.net.state_dict().items()},
+            "rows": ring_rows(tr.replay)[:size].cpu(),
+            "priority": tr.replay.priority[:size].cpu(), "size": size,
+            "t": tr.agent.t, "updates": int(metrics["updates"]),
+            "seconds": seconds, "sampled": [i.cpu() for i in sampled],
+            "bit_step_launches": bit_step.launches - launches}
+
+
+def _dp_offpolicy_task(mesh, device, args):
+    """(g) DQN and Rainbow, sampling their own rows and (``g_rows``) on
+    the rows (e) and (f) sampled (``args["rows"]``, a file), (h) both
+    per-shard, (i) the tensor-parallel PPO step on the 1 x 2 mesh of the
+    same ranks, then the faults of DP_OFF_FAULTS on (g)'s DQN on (e)'s
+    rows and DP_TP_FAULT on (i); returns their results and the B1
+    launches of (g)-(i)."""
+    import torch
+    from gymothelloenv_tpu_torch.ops.step import bit_step
+    from gymothelloenv_tpu_torch.parallel import dryrun, make_mesh
+    launches = bit_step.launches
+    model = make_mesh(mesh.world, model_parallel=2, backend=mesh.backend,
+                      device=mesh.device)
+    size = args["size"]
+    rows = torch.load(args["rows"], weights_only=False)
+    out = {"g": {f: _dp_off_run(f, mesh, device, size)
+                 for f in ("dqn", "rainbow")},
+           "g_rows": {f: _dp_off_run(f, mesh, device, size, rows=rows[f])
+                      for f in ("dqn", "rainbow")},
+           "h": {f: _dp_off_run(f, mesh, device, size, pershard=True)
+                 for f in ("dqn", "rainbow")},
+           "i": dryrun.tp_task(model, device, args["tp"])}
+    out["bit_step_launches"] = bit_step.launches - launches
+    for part in ("g", "g_rows", "h"):
+        for res in out[part].values():
+            res.pop("sampled")
+    out["faults"] = {}
+    for fault in DP_OFF_FAULTS:
+        with _planted(fault):
+            out["faults"][fault] = _dp_off_run("dqn", mesh, device, size,
+                                               rows=rows["dqn"])
+            out["faults"][fault].pop("sampled")
+    with _planted(DP_TP_FAULT):
+        out["faults"][DP_TP_FAULT] = dryrun.tp_task(model, device,
+                                                    args["tp"])
+    return out
+
+
+def _dp_offpolicy_gate(torch, ranks, off_nccl, off_init, one_tp, tp_init):
+    """(g)-(i)'s gates and the planted faults', on the ranks' results
+    against (e) and (f) and against world 1's tensor-parallel step;
+    prints a reading a part and returns them."""
+    from gymothelloenv_tpu_torch.parallel.replay_shards import (
+        assert_ring_union_equal)
+    res = [r["offpolicy"] for r in ranks]
+    rel_g, rel_rows, ring_h = {}, {}, {}
+    for fam in ("dqn", "rainbow"):
+        want = off_nccl[fam]
+        for part in ("g", "g_rows"):
+            runs = [r[part][fam] for r in res]
+            for r in runs[1:]:
+                require(all(torch.equal(r["state"][k], runs[0]["state"][k])
+                            for k in r["state"])
+                        and torch.equal(r["rows"], runs[0]["rows"])
+                        and torch.equal(r["priority"], runs[0]["priority"]),
+                        f"[dp] ({part}) {fam}: the ranks are not bit-equal")
+            require(runs[0]["t"] == want["t"] and torch.equal(
+                runs[0]["rows"], want["rows"]), f"[dp] ({part}) {fam}: the "
+                "ring differs from the world-1 ring")
+        runs = [r["g"][fam] for r in res]
+        rel_rows[fam] = _dp_rel(f"(g) {fam} 2 gloo ranks on (e)/(f)'s rows",
+                                want["state"], res[0]["g_rows"][fam]["state"],
+                                off_init[fam])
+        rel_g[fam] = _dp_worst(f"(g) {fam}", want["state"], runs[0]["state"],
+                               off_init[fam])
+        require(rel_g[fam] <= DP_OFF_PARAM_RTOL, f"[dp] (g) {fam} 2 gloo "
+                f"ranks sampling their own rows: a leaf differs by "
+                f"{rel_g[fam]:.3e} of its largest change > "
+                f"{DP_OFF_PARAM_RTOL}")
+        shards = [r["h"][fam] for r in res]
+        assert_ring_union_equal(want["rows"], want["size"],
+                                [r["rows"] for r in shards],
+                                [r["size"] for r in shards],
+                                name=f"[dp] (h) {fam}")
+        require(all(r["t"] == want["t"] for r in shards), f"[dp] (h) {fam}")
+        require(all(bool(torch.isfinite(v).all()) for r in shards
+                    for v in r["state"].values()), f"[dp] (h) {fam}: "
+                "params not finite")
+        ring_h[fam] = [r["size"] for r in shards]
+        say(f"[dp] (g) {fam}: 2 gloo ranks on one card, N "
+            f"{DP_OFF_ENVS // 2} each = (e)/(f): on its rows per leaf "
+            f"{rel_rows[fam]:.3e} of its largest change (rtol "
+            f"{DP_PARAM_RTOL}), sampling their own {rel_g[fam]:.3e} (rtol "
+            f"{DP_OFF_PARAM_RTOL}), rings equal, ranks bit-equal, "
+            + ", ".join(f"{r['seconds']:.2f}" for r in runs)
+            + f" s by rank; (h) per-shard: ring union = the replicated ring "
+            f"({want['size']} rows as {ring_h[fam]}), "
+            + ", ".join(f"{r['seconds']:.2f}" for r in shards) + " s")
+    tp = [r["i"] for r in res]
+    for r in tp[1:]:
+        require(all(torch.equal(r["state"][k], tp[0]["state"][k])
+                    for k in r["state"]), "[dp] (i): ranks differ")
+    rel_i = _dp_rel("(i) tensor-parallel 1 x 2 vs world 1",
+                    one_tp["state"], tp[0]["state"], tp_init)
+    norms = torch.tensor(tp[0]["norms"]) / torch.tensor(one_tp["norms"])
+    norm_rel = float((norms - 1).abs().max())
+    clipped = sum(n > 0.5 for n in one_tp["norms"])
+    require(norm_rel <= DP_TP_NORM_RTOL, f"[dp] (i): a clip's norm differs "
+            f"by {norm_rel:.3e} > {DP_TP_NORM_RTOL}")
+    require(clipped > 0, "[dp] (i): the clip never acted")
+    say(f"[dp] (i) make_sharded_train_step on 1 x 2 (wide2, N {DP_ENVS}, T "
+        f"{DP_STEPS}, one step) = world 1: per leaf {rel_i:.3e} of its "
+        f"largest change, clip norms within {norm_rel:.3e}, the clip acted "
+        f"at {clipped} of {len(one_tp['norms'])} minibatches")
+    faults = {}
+    for fault in DP_OFF_FAULTS:
+        got = res[0]["faults"][fault]
+        want = off_nccl["dqn"]
+        worst = _dp_worst(fault, want["state"], got["state"],
+                          off_init["dqn"])
+        rings_equal = torch.equal(got["rows"], want["rows"])
+        faults[fault] = dict(rel=worst, ring_equal=rings_equal)
+        require(worst > DP_PARAM_RTOL or not rings_equal, f"[dp] (g)'s gate "
+                f"misses the planted fault {fault}: {worst:.3e}, rings "
+                f"{'equal' if rings_equal else 'differ'}")
+    got = res[0]["faults"][DP_TP_FAULT]
+    worst = _dp_worst(DP_TP_FAULT, one_tp["state"], got["state"], tp_init)
+    fault_norm = float((torch.tensor(got["norms"])
+                        / torch.tensor(one_tp["norms"]) - 1).abs().max())
+    faults[DP_TP_FAULT] = dict(rel=worst, norm_rel=fault_norm)
+    require(worst > DP_PARAM_RTOL or fault_norm > DP_TP_NORM_RTOL,
+            f"[dp] (i)'s gate misses the planted fault {DP_TP_FAULT}")
+    say("[dp] planted faults fail the gates: " + ", ".join(
+        f"{k} per leaf {v['rel']:.3e}" + (
+            f", ring {'equal' if v['ring_equal'] else 'differs'}"
+            if "ring_equal" in v else f", clip norms {v['norm_rel']:.3e}")
+        for k, v in faults.items()))
+    return dict(offpolicy_ranks=rel_g, offpolicy_ranks_on_rows=rel_rows,
+                pershard_sizes=ring_h, tp_rel=rel_i,
+                tp_norm_rel=norm_rel, tp_clipped=clipped,
+                offpolicy_faults=faults)
 
 
 def _index_policies(torch, tb):

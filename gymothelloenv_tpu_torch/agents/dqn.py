@@ -29,6 +29,8 @@ from gymothelloenv_tpu_torch.agents.replay import (Replay, ReplayConfig,
                                                    replay_update_priorities)
 from gymothelloenv_tpu_torch.core.engine import nth_legal
 from gymothelloenv_tpu_torch.models.nets import DQNNet, DuelingDQNNet
+from gymothelloenv_tpu_torch.parallel.sharding import (all_gather_cat,
+                                                       all_reduce_grads)
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
 
@@ -212,12 +214,14 @@ def huber(pred: torch.Tensor, target: torch.Tensor,
     return 0.5 * quad * quad + delta * (err - quad)
 
 
-def dqn_loss_grads(state: DQNState, cfg: DQNConfig, batch):
+def dqn_loss_grads(state: DQNState, cfg: DQNConfig, batch, denom=None):
     """The target ``y = r + gamma^n * max_a' targetQ(s', a')`` (Double: the
     online argmax, dqn.py:439-444; ``gamma^n`` in both branches, as JAX),
     a Huber loss (delta 1) on the gathered Q; the gradients land in the
     online net's ``.grad``.  ``batch``: ``(board, turn, action, reward,
-    next_board, next_turn, done)``.  Returns ``(loss, td)``."""
+    next_board, next_turn, done)``.  ``denom``: the loss's denominator
+    (``None``: the mean; on a mesh the whole minibatch's row count, of
+    which ``batch`` is one rank's share).  Returns ``(loss, td)``."""
     board, turn, action, reward, next_board, next_turn, done = batch
     action = action.to(torch.int64)
     with torch.no_grad():
@@ -231,21 +235,48 @@ def dqn_loss_grads(state: DQNState, cfg: DQNConfig, batch):
         y = reward + (1.0 - done.to(torch.float32)) * cfg.gamma_n * boot
     q = state.net(featurize3(board, turn))
     q_a = q.gather(1, action[:, None])[:, 0]
-    loss = huber(q_a, y).mean()
+    err = huber(q_a, y)
+    loss = err.mean() if denom is None else err.sum() / denom
     state.optimizer.zero_grad()
     loss.backward()
     return loss.detach(), (y - q_a).detach()
 
 
+def data_parallel_loss(state: DQNState, loss_grads, batch, mesh):
+    """A minibatch's loss and per-row errors with its gradients in the
+    online net's ``.grad``, by ``loss_grads(rows[, denom]) -> (loss,
+    errors)``: the whole ``batch`` without a mesh (no ``denom``); on a
+    mesh (JAX ``shard_minibatch_idx``: the rows sharded over ``data``)
+    this data index's contiguous share of the rows, the loss divided by
+    the whole minibatch's count, the gradients and the loss summed over
+    the data axis in one collective and the errors all-gathered back into
+    slot order, so every rank holds the world-1 gradients, loss and
+    errors.  The rows must divide by the data axis."""
+    if mesh is None:
+        return loss_grads(batch)
+    n = batch[0].shape[0]
+    per, off = mesh.shard(n)
+    loss, err = loss_grads(tuple(f[off:off + per] for f in batch), n)
+    total = loss.reshape(1).clone()
+    all_reduce_grads(state.optimizer.params, mesh, [total])
+    return total[0], all_gather_cat(err, mesh)
+
+
 def dqn_train_batch(state: DQNState, replay: Replay, cfg: DQNConfig,
-                    rb_cfg: ReplayConfig, draws) -> torch.Tensor:
+                    rb_cfg: ReplayConfig, draws, mesh=None) -> torch.Tensor:
     """One minibatch update (train_network, dqn.py:407-467): sample
     ``batch_size`` rows (a uniform each from ``draws``), the loss and its
     gradients, an RMSprop step, and with PER the priorities of the rows
-    refreshed from their TD errors.  Returns the loss (0-d)."""
+    refreshed from their TD errors.  ``mesh``: every rank holds the same
+    replay and draws the same rows (global sampling), the gradients are
+    data parallel (``data_parallel_loss``), and every rank refreshes the
+    priorities of its whole replica from every row's TD error, so the
+    replicas stay equal.  Returns the loss (0-d)."""
     u = draws.replay_uniforms(cfg.batch_size, replay.priority.device)
     idx = replay_sample_idx(replay, rb_cfg, u)
-    loss, td = dqn_loss_grads(state, cfg, replay_gather(replay, idx))
+    loss, td = data_parallel_loss(
+        state, lambda rows, *denom: dqn_loss_grads(state, cfg, rows, *denom),
+        replay_gather(replay, idx), mesh)
     state.optimizer.step()
     if rb_cfg.prioritized:
         replay_update_priorities(replay, rb_cfg, idx, td)

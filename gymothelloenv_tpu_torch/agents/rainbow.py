@@ -31,8 +31,9 @@ import math
 import torch
 from torch import nn
 
-from gymothelloenv_tpu_torch.agents.dqn import (DQNState, featurize3,
-                                                frozen_copy,
+from gymothelloenv_tpu_torch.agents.dqn import (DQNState,
+                                                data_parallel_loss,
+                                                featurize3, frozen_copy,
                                                 greedy_legal_action)
 from gymothelloenv_tpu_torch.agents.ppo import Adam
 from gymothelloenv_tpu_torch.agents.replay import (Replay, ReplayConfig,
@@ -197,8 +198,9 @@ def expected_q(logits: torch.Tensor, cfg: RainbowConfig) -> torch.Tensor:
 
 
 def draw_noise(net: RainbowNet, draws, device) -> torch.Tensor:
-    """One noisy forward's normals (``net.noise_size``,) from ``draws``."""
-    return draws.normals(net.noise_size, device)
+    """One noisy forward's normals (``net.noise_size``,) from ``draws``
+    (``noise``: the same on every rank of a mesh)."""
+    return draws.noise(net.noise_size, device)
 
 
 @torch.no_grad()
@@ -238,15 +240,18 @@ def _row(logits: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
     return logits.gather(1, idx)[:, 0]
 
 
-def rainbow_loss_grads(state: DQNState, cfg: RainbowConfig, batch, draws):
+def rainbow_loss_grads(state: DQNState, cfg: RainbowConfig, batch, draws,
+                       denom=None):
     """The C51 loss (JAX ``rainbow_loss_grads``): the online net with its
     noise picks ``a*`` by expected Q, the target net with its own noise
     gives a*'s distribution, projected onto the support; the trained
     forward (a third noise sample) takes the action's row, log-softmax
     over the atoms, and the KL to the projection.  The gradients of the
     mean KL land in the online net's ``.grad``.  ``batch``: ``(board,
-    turn, action, reward, next_board, next_turn, done)``.  Returns
-    ``(loss, kl)``, ``kl`` per sample."""
+    turn, action, reward, next_board, next_turn, done)``.  ``denom``: the
+    loss's denominator (``None``: the mean; on a mesh the whole
+    minibatch's row count).  Returns ``(loss, kl)``, ``kl`` per
+    sample."""
     board, turn, action, reward, next_board, next_turn, done = batch
     dev = board.device
     with torch.no_grad():
@@ -263,22 +268,27 @@ def rainbow_loss_grads(state: DQNState, cfg: RainbowConfig, batch, draws):
                        draw_noise(state.net, draws, dev))
     log_pa = torch.log_softmax(_row(logits, action), dim=-1)
     kl = -(proj * log_pa).sum(dim=-1)
-    loss = kl.mean()
+    loss = kl.mean() if denom is None else kl.sum() / denom
     state.optimizer.zero_grad()
     loss.backward()
     return loss.detach(), kl.detach()
 
 
 def rainbow_train_batch(state: DQNState, replay: Replay, cfg: RainbowConfig,
-                        rb_cfg: ReplayConfig, draws) -> torch.Tensor:
+                        rb_cfg: ReplayConfig, draws, mesh=None
+                        ) -> torch.Tensor:
     """One C51 update (JAX ``rainbow_train_batch``): sample
     ``batch_size`` rows (a uniform each from ``draws``), the loss and
     its gradients, an Adam step, and with PER the rows' priorities set
-    from their KL terms.  Returns the loss (0-d)."""
+    from their KL terms.  ``mesh``: as ``agents.dqn.dqn_train_batch``'s,
+    the noise one draw a batch, the same on every rank.  Returns the
+    loss (0-d)."""
     u = draws.replay_uniforms(cfg.batch_size, replay.priority.device)
     idx = replay_sample_idx(replay, rb_cfg, u)
-    loss, kl = rainbow_loss_grads(state, cfg, replay_gather(replay, idx),
-                                  draws)
+    loss, kl = data_parallel_loss(
+        state, lambda rows, *denom: rainbow_loss_grads(state, cfg, rows,
+                                                       draws, *denom),
+        replay_gather(replay, idx), mesh)
     state.optimizer.step()
     if rb_cfg.prioritized:
         replay_update_priorities(replay, rb_cfg, idx, kl)

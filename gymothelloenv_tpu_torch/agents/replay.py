@@ -91,6 +91,19 @@ def replay_insert(rb: Replay, cfg: ReplayConfig, board, turn, action,
     return rb
 
 
+def insert_emitted(rb: Replay, cfg: ReplayConfig, emitted) -> torch.Tensor:
+    """The n-step pushes' emissions ``emitted`` (each with ``FIELDS`` and
+    ``valid`` as (slot, stream, ...) tensors) into the ring in JAX's
+    order (push, then window slot, then stream); returns how many rows
+    were valid (0-d)."""
+    def flat(name):
+        return torch.cat([getattr(e, name).reshape(
+            (-1,) + getattr(e, name).shape[2:]) for e in emitted])
+    valid = flat("valid")
+    replay_insert(rb, cfg, *(flat(f) for f in FIELDS), valid)
+    return valid.sum()
+
+
 def replay_sample_idx(rb: Replay, cfg: ReplayConfig, u: torch.Tensor
                       ) -> torch.Tensor:
     """int64 indices, one per uniform in ``u`` (float32 (batch,)): uniform
@@ -139,3 +152,46 @@ def replay_gather(rb: Replay, idx: torch.Tensor) -> tuple:
     """``(board, turn, action, reward, next_board, next_turn, done)`` at
     the rows ``idx``."""
     return tuple(getattr(rb, f)[idx] for f in FIELDS)
+
+
+def pack_bytes(tensors, lead: int) -> torch.Tensor:
+    """``tensors`` (equal first ``lead`` axes) as one uint8 tensor of
+    their bytes, ``lead`` axes then one axis of every tensor's bytes in
+    order: the rows a collective moves whole (JAX packs its replay rows
+    the same way)."""
+    parts = []
+    for t in tensors:
+        t = t.contiguous()
+        flat = t.reshape(t.shape[:lead] + (-1,))
+        parts.append(flat.view(torch.uint8))
+    return torch.cat(parts, dim=-1)
+
+
+def unpack_bytes(buf: torch.Tensor, like) -> tuple:
+    """The inverse of ``pack_bytes``: ``like`` gives each tensor's dtype
+    and trailing shape, ``buf``'s leading axes its leading ones."""
+    out, start = [], 0
+    lead = buf.shape[:-1]
+    for dtype, shape in like:
+        width = torch.empty((), dtype=dtype).element_size()
+        for extent in shape:
+            width *= extent
+        part = buf[..., start:start + width].contiguous()
+        out.append(part.view(dtype).reshape(lead + tuple(shape)))
+        start += width
+    return tuple(out)
+
+
+def row_layout(board_size: int) -> tuple:
+    """``(dtype, trailing shape)`` of each of ``FIELDS`` in a replay row."""
+    b = board_size
+    return ((torch.int8, (b, b)), (torch.int8, ()), (torch.int32, ()),
+            (torch.float32, ()), (torch.int8, (b, b)), (torch.int8, ()),
+            (torch.bool, ()))
+
+
+def ring_rows(rb: Replay) -> torch.Tensor:
+    """uint8 (capacity, row bytes): the ring's rows, its fields packed in
+    ``FIELDS`` order (``pack_bytes``), without the scratch row (which
+    holds whichever masked write came last)."""
+    return pack_bytes([getattr(rb, f)[:-1] for f in FIELDS], 1)

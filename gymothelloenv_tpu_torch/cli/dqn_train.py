@@ -2,10 +2,13 @@
 DQN training entry; dqn.py flags ``--prioritized/--double/--dueling/
 --n_step``, dqn.py:505-522): every JAX flag plus ``--device``.  The nets
 compute in float32 with TF32 off (``utils.device.use_float32``).
-``--data-parallel`` and ``--replay-sharding per-shard`` raise: multi-device
-training is ROADMAP.md queue 1 item 13b.  Checkpoints are the JAX CLI's
-files (flax msgpack with ``extra.t``), so ``--load`` resumes a run of
-either.
+``--data-parallel N`` trains on N ranks, one process a rank as
+``torchrun`` starts them (``--dist-backend`` nccl or gloo), with the
+replay replicated or, with ``--replay-sharding per-shard``, a ring a
+rank; per-shard without ``--data-parallel`` is a usage error, as in
+JAX's CLI.  Process 0 alone prints, logs and writes checkpoints.
+Checkpoints are the JAX CLI's files (flax msgpack with ``extra.t``), so
+``--load`` resumes a run of either.
 
 Usage:
     python -m gymothelloenv_tpu_torch.cli.dqn_train --num-chunks 500 \
@@ -17,6 +20,9 @@ Usage:
     python -m gymothelloenv_tpu_torch.cli.dqn_train --device cpu \
         --num-envs 8 --chunk-plies 8 --num-chunks 2 --replay-size 4096 \
         --initial-replay-size 0 --batch-size 16 --num-test-games 4
+    torchrun --nproc-per-node 4 -m gymothelloenv_tpu_torch.cli.dqn_train \
+        --data-parallel 4 --num-envs 1024 --batch-size 4096 \
+        --replay-sharding per-shard
 """
 
 from __future__ import annotations
@@ -26,8 +32,11 @@ import argparse
 from gymothelloenv_tpu_torch.agents.dqn import DQNConfig
 from gymothelloenv_tpu_torch.agents.replay import ReplayConfig
 from gymothelloenv_tpu_torch.core.state import EnvConfig
-from gymothelloenv_tpu_torch.train.dqn_trainer import (UNPORTED,
-                                                       DQNRunConfig,
+from gymothelloenv_tpu_torch.parallel.multihost import (add_mesh_flags,
+                                                        leave,
+                                                        mesh_from_flags)
+from gymothelloenv_tpu_torch.parallel.sharding import is_main
+from gymothelloenv_tpu_torch.train.dqn_trainer import (DQNRunConfig,
                                                        DQNTrainer)
 from gymothelloenv_tpu_torch.utils.device import use_float32
 from gymothelloenv_tpu_torch.utils.logging import MetricsLogger
@@ -72,11 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="chunks between checkpoint saves; a {step} "
                              "placeholder in --checkpoint keeps one file "
                              "a save")
-    parser.add_argument("--data-parallel", type=int, default=0,
-                        help="not ported (multi-device training)")
-    parser.add_argument("--replay-sharding", default="replicated",
-                        choices=("replicated", "per-shard"),
-                        help="'per-shard' is not ported (multi-device)")
+    add_mesh_flags(parser, replay=True)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--checkpoint", type=str, default="")
     parser.add_argument("--load", type=str, default="")
@@ -86,11 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> DQNTrainer:
-    args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise NotImplementedError(f"--data-parallel: {UNPORTED}")
-    if args.replay_sharding != "replicated":
-        raise NotImplementedError(f"--replay-sharding per-shard: {UNPORTED}")
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    mesh = mesh_from_flags(parser, args)
     env_cfg = EnvConfig(board_size=args.board_size, num_disk_as_reward=True)
     dqn_cfg = DQNConfig(
         board_size=args.board_size, gamma=args.gamma, n_step=args.n_step,
@@ -117,18 +120,21 @@ def main(argv=None) -> DQNTrainer:
         trainer = DQNTrainer(env_cfg=env_cfg, dqn_cfg=dqn_cfg,
                              rb_cfg=rb_cfg, run_cfg=run_cfg,
                              log_fn=logger.log if logger else None,
-                             device=args.device)
-        print(f"device: {trainer.device}; {precision}", flush=True)
+                             mesh=mesh,
+                             device=None if mesh else args.device)
+        say = print if is_main(mesh) else (lambda *a, **k: None)
+        say(f"device: {trainer.device}; {precision}", flush=True)
         if args.load:
             trainer.load(args.load)
-            print(f"resumed from {args.load} at chunk "
+            say(f"resumed from {args.load} at chunk "
                   f"{trainer.chunk_count}", flush=True)
         trainer.train(args.num_chunks, log_every=args.log_every,
                       checkpoint_path=args.checkpoint or None)
-        print("final eval:", trainer.evaluate(), flush=True)
+        say("final eval:", trainer.evaluate(), flush=True)
     finally:
         if logger:
             logger.close()
+        leave(mesh)
     return trainer
 
 

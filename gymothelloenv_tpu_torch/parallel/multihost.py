@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from gymothelloenv_tpu_torch.parallel.sharding import (BACKENDS, DataMesh,
+                                                       all_gather_cat,
                                                        make_mesh)
 
 
@@ -59,7 +60,8 @@ def initialize(init_method: str | None = None,
 
 def make_pod_mesh(model_parallel: int = 1, backend: str = "nccl",
                   device=None) -> DataMesh:
-    """The mesh over every rank of the group (``make_mesh``)."""
+    """The (n / model_parallel, model_parallel) mesh over every rank of
+    the group (``make_mesh``)."""
     return make_mesh(n_devices=None, model_parallel=model_parallel,
                      backend=backend, device=device)
 
@@ -78,10 +80,56 @@ def host_batch_slice(global_batch: int,
 
 def assemble_global(mesh: DataMesh, host_local: torch.Tensor,
                     axis: int = 0) -> torch.Tensor:
-    """Every rank's ``host_local`` (equal shapes) concatenated along
-    ``axis`` in rank order, on every rank (one ``all_gather``)."""
-    if not mesh.distributed:
-        return host_local
-    parts = [torch.empty_like(host_local) for _ in range(mesh.world)]
-    dist.all_gather(parts, host_local.contiguous())
-    return torch.cat(parts, dim=axis)
+    """Every data index's ``host_local`` (equal shapes) concatenated
+    along ``axis`` in rank order, on every rank (one ``all_gather`` over
+    the data group)."""
+    return all_gather_cat(host_local, mesh, axis)
+
+
+def add_mesh_flags(parser, replay: bool = False) -> None:
+    """The off-policy CLIs' mesh flags (JAX ``cli/dqn_train.py``):
+    ``--data-parallel``, ``--dist-backend`` and, with ``replay``,
+    ``--replay-sharding``."""
+    parser.add_argument("--data-parallel", type=int, default=0,
+                        help="shard the games and the updates over this "
+                             "many ranks, one process a rank as torchrun "
+                             "starts them (torchrun --nproc-per-node N; "
+                             "0 = no mesh)")
+    parser.add_argument("--dist-backend", choices=BACKENDS, default="nccl",
+                        help="the ranks' collectives: nccl (one card a "
+                             "rank) or gloo (CPU ranks, or several ranks "
+                             "on one card)")
+    if replay:
+        parser.add_argument("--replay-sharding", default="replicated",
+                            choices=("replicated", "per-shard"),
+                            help="replay layout under --data-parallel: "
+                                 "'replicated' = the whole ring on every "
+                                 "rank (exact global PER); 'per-shard' = "
+                                 "each rank owns capacity/N of it, "
+                                 "sampling still globally prioritized "
+                                 "(parallel/replay_shards.py)")
+
+
+def mesh_from_flags(parser, args) -> DataMesh | None:
+    """The mesh of ``add_mesh_flags``' flags: ``None`` without
+    ``--data-parallel`` (where ``--replay-sharding per-shard`` is a usage
+    error, as JAX's CLIs make it); else this process joins the group
+    ``torchrun``'s variables describe (``initialize``) and the mesh over
+    it, which must have ``--data-parallel`` ranks.  ``--device cpu`` puts
+    the rank on the CPU; otherwise nccl takes ``cuda:LOCAL_RANK``."""
+    if not args.data_parallel:
+        if getattr(args, "replay_sharding", "replicated") != "replicated":
+            parser.error("--replay-sharding per-shard requires "
+                         "--data-parallel")
+        return None
+    initialize(backend=args.dist_backend)
+    device = None if args.device == "cuda" else args.device
+    return make_mesh(args.data_parallel, backend=args.dist_backend,
+                     device=device)
+
+
+def leave(mesh: DataMesh | None) -> None:
+    """Leave the process group ``mesh_from_flags`` joined, if any."""
+    if mesh is not None and dist.is_initialized():
+        dist.destroy_process_group()
+

@@ -1,16 +1,27 @@
-"""Data-parallel mesh and collectives — the port of ``parallel/sharding.py``
-in PyTorch's idiom: one process per GPU under ``torch.distributed`` (as
-``torchrun`` starts them), each rank owning ``N / world`` games of the
-global batch on its own device, parameters replicated, gradients summed
-with ``all_reduce``.  JAX shards the batch over a ``data`` mesh axis
-inside one GSPMD program; here a ``DataMesh`` names the process group and
-this rank's place in it.
+"""The (data, model) mesh and its collectives — the port of
+``parallel/sharding.py`` in PyTorch's idiom: one process per GPU under
+``torch.distributed`` (as ``torchrun`` starts them).  JAX lays its devices
+out as an (n / m, m) ``Mesh`` with axes ``data`` and ``model`` and lets
+GSPMD insert the collectives; here a ``DataMesh`` names this process's
+place on the two axes and the process groups of each: process ``p`` sits
+at data index ``p // m`` and model index ``p % m``, as JAX's reshape puts
+device ``p``.  Each data index owns ``N / (n / m)`` games of the global
+batch; the ``m`` processes of one data index hold the same games and the
+same replicated parameters (JAX's trainers only replicate over
+``model``), or, under ``parallel/dp.py``'s tensor parallelism, each its
+slice of ``PolicyNet``'s wide layers (``policy_param_shardings``).
+Gradients are summed over the data group only.
 
 The backend is explicit, ``nccl`` or ``gloo``, and never chosen from what
 is found: ``make_mesh`` refuses a group of another backend.  NCCL puts one
 rank on a card; gloo runs ranks on the CPU, or several ranks on one card
-(its collectives take CUDA tensors).  Tensor parallelism over a ``model``
-axis is not ported (``model_parallel > 1`` raises).
+(its collectives take CUDA tensors).
+
+JAX's ``constrain_batch``, ``constrain_batch_axes`` and
+``constrain_replicated`` are GSPMD sharding hints inside a traced
+program; eager PyTorch has no counterpart (each process holds only its
+slice, ``shard_batch_tree``/``shard_batch_axes``), so they are not
+ported.
 """
 
 from __future__ import annotations
@@ -26,25 +37,33 @@ import torch.distributed as dist
 from gymothelloenv_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("nccl", "gloo")
-UNPORTED = ("tensor parallelism (model_parallel > 1), DQN and Rainbow under "
-            "a mesh and per-shard replay are not ported: ROADMAP.md queue 1 "
-            "item 13b")
 
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """This process's place in the data-parallel group (the default
-    process group, or none for a single process that never initialised
-    one): ``rank`` of ``world`` ranks over ``backend``, its games and net
-    on ``device``."""
+    """This process's place on the (data, model) mesh: ``rank`` of
+    ``world`` along the data axis (the data index and the data axis's
+    size) and ``model_rank`` of ``model_parallel`` along the model axis,
+    over ``backend``, its games and net on ``device``.  ``data_group``:
+    the processes of this model index, one a data index (``None``: the
+    default group, every process, when ``model_parallel`` is 1, or no
+    group at all for a single process that never initialised one);
+    ``model_group``: the processes of this data index (``None`` when
+    ``model_parallel`` is 1)."""
     rank: int
     world: int
     device: torch.device
     backend: str
+    model_rank: int = 0
+    model_parallel: int = 1
+    data_group: object = dataclasses.field(default=None, compare=False,
+                                           repr=False)
+    model_group: object = dataclasses.field(default=None, compare=False,
+                                            repr=False)
 
     def shard(self, n: int) -> tuple[int, int]:
-        """``(per_rank, offset)`` of this rank's share of ``n`` rows; ``n``
-        must divide by the world."""
+        """``(per_rank, offset)`` of this data index's share of ``n`` rows;
+        ``n`` must divide by the data axis."""
         if n % self.world:
             raise ValueError(f"a batch of {n} does not split over "
                              f"{self.world} ranks")
@@ -57,14 +76,19 @@ class DataMesh:
         without a group reduces to the identity)."""
         return dist.is_initialized()
 
+    @property
+    def process_rank(self) -> int:
+        """This process's rank in the default group."""
+        return self.rank * self.model_parallel + self.model_rank
+
 
 def check_data_mesh(mesh) -> DataMesh:
-    """``mesh`` if it is a ``DataMesh``; anything else (a JAX mesh, a mesh
-    with a model axis) raises ``NotImplementedError``."""
+    """``mesh`` if it is a ``DataMesh`` (with or without a model axis);
+    anything else (a JAX mesh) raises ``TypeError``."""
     if not isinstance(mesh, DataMesh):
-        raise NotImplementedError(
+        raise TypeError(
             f"mesh must be a DataMesh from gymothelloenv_tpu_torch.parallel."
-            f"make_mesh, got {type(mesh).__name__}; {UNPORTED}")
+            f"make_mesh, got {type(mesh).__name__}")
     return mesh
 
 
@@ -99,17 +123,17 @@ def _default_device(backend: str, rank: int) -> torch.device:
 
 def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
               backend: str = "nccl", device=None) -> DataMesh:
-    """The data-parallel mesh over every rank of the initialised process
-    group (``multihost.initialize``), or over this process alone when no
-    group is initialised (then ``n_devices`` must be 1 or ``None``).
-    ``n_devices``, when given, must equal the world size.  ``device``:
-    this rank's device (default: ``cuda:LOCAL_RANK`` under nccl, the
-    current card under gloo; pass ``"cpu"`` for CPU ranks).  A group of
-    another backend raises ``ValueError``; ``model_parallel > 1`` raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 13b)."""
-    if model_parallel != 1:
-        raise NotImplementedError(f"model_parallel={model_parallel}: "
-                                  f"{UNPORTED}")
+    """The (n / m, m) mesh over every rank of the initialised process
+    group (``multihost.initialize``), ``m = model_parallel``, or over this
+    process alone when no group is initialised (then ``n_devices`` must
+    be 1 or ``None``).  ``n_devices``, when given, must equal the world
+    size, and ``model_parallel`` must divide it (JAX's ``ValueError``).
+    With ``m > 1`` every rank makes the m data groups and the n / m model
+    groups with ``dist.new_group``, in the same order, so every rank must
+    call this together.  ``device``: this rank's device (default:
+    ``cuda:LOCAL_RANK`` under nccl, the current card under gloo; pass
+    ``"cpu"`` for CPU ranks).  A group of another backend raises
+    ``ValueError``."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got "
                          f"{backend!r}")
@@ -124,44 +148,98 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
     if n_devices not in (None, world):
         raise ValueError(f"n_devices={n_devices}, but the group has "
                          f"{world} ranks (one device a rank)")
+    if model_parallel < 1 or world % model_parallel:
+        raise ValueError(f"{world} devices not divisible by "
+                         f"model_parallel={model_parallel}")
     device = (_default_device(backend, rank) if device is None
               else torch.device(device))
     if backend == "nccl" and device.type != "cuda":
         raise ValueError(f"nccl ranks run on a card, not {device}")
-    return DataMesh(rank=rank, world=world, device=device, backend=backend)
+    m, data = model_parallel, world // model_parallel
+    data_group = model_group = None
+    if m > 1:
+        for k in range(m):
+            group = dist.new_group([d * m + k for d in range(data)])
+            if k == rank % m:
+                data_group = group
+        for d in range(data):
+            group = dist.new_group([d * m + k for k in range(m)])
+            if d == rank // m:
+                model_group = group
+    return DataMesh(rank=rank // m, world=data, device=device,
+                    backend=backend, model_rank=rank % m, model_parallel=m,
+                    data_group=data_group, model_group=model_group)
+
+
+# Tensor-parallel split of PolicyNet (JAX ``_POLICY_TP_RULES``): the wide fc
+# and the heads' kernels are the only layers worth sharding; the trunk and
+# the heads' biases replicate.  Each entry: the parameter's name and the
+# torch axis split over ``model`` (torch's Linear weight is JAX's kernel
+# transposed: JAX's fc columns are torch's rows, its head rows torch's
+# columns).
+POLICY_TP_RULES = (
+    ("fc.weight", 0),       # Dense_0/kernel P(None, "model"): columns
+    ("fc.bias", 0),         # Dense_0/bias P("model")
+    ("value.weight", 1),    # Dense_1/kernel P("model", None): rows
+    ("logits.weight", 1),   # Dense_2/kernel P("model", None): rows
+)
+
+
+def policy_param_shardings(mesh: DataMesh, net: torch.nn.Module) -> dict:
+    """The split of each of ``net``'s (a ``PolicyNet``'s) parameters over
+    the model axis: ``{name: axis}``, the torch axis a ``POLICY_TP_RULES``
+    parameter is cut on, ``None`` where it replicates, and every
+    parameter replicated on a mesh whose model axis is 1 (JAX
+    ``policy_param_shardings``)."""
+    rules = dict(POLICY_TP_RULES) if mesh.model_parallel > 1 else {}
+    return {name: rules.get(name) for name, _ in net.named_parameters()}
 
 
 # --- collectives ------------------------------------------------------------
 
-def _all_reduce(buf: torch.Tensor, mesh: DataMesh, op) -> None:
-    if mesh.distributed:
-        dist.all_reduce(buf, op=op)
-    elif mesh.world != 1:
-        raise RuntimeError("a mesh of several ranks needs an initialised "
-                           "process group")
+def _all_reduce(buf: torch.Tensor, mesh: DataMesh, op,
+                group: str = "data", replicate: bool = True) -> None:
+    """``buf`` reduced in place over the mesh's ``group`` axis (``"data"``
+    or ``"model"``).  A data-axis reduction on a mesh with a model axis
+    is then copied from model index 0 to the others (``replicate``): the
+    model ranks of a data index compute the same values, but a card's
+    kernels (cuDNN's weight gradient) need not round alike from run to
+    run, and replicated state must stay bit-equal as JAX's does."""
+    size = mesh.world if group == "data" else mesh.model_parallel
+    if size > 1:
+        if not mesh.distributed:
+            raise RuntimeError("a mesh of several ranks needs an "
+                               "initialised process group")
+        dist.all_reduce(buf, op=op, group=getattr(mesh, f"{group}_group"))
+    if group == "data" and replicate and mesh.model_parallel > 1:
+        dist.broadcast(buf, src=mesh.rank * mesh.model_parallel,
+                       group=mesh.model_group)
 
 
 def all_reduce_sum(tensors: Sequence[torch.Tensor], mesh: DataMesh,
-                   op=None) -> list:
-    """Sum (or reduce with ``op``) ``tensors`` over the mesh's ranks in
-    place, with one collective a dtype (the tensors flattened into one
-    buffer).  Returns the tensors."""
+                   op=None, group: str = "data",
+                   replicate: bool = True) -> list:
+    """Sum (or reduce with ``op``) ``tensors`` over the mesh's data axis
+    (or ``group="model"``: its model axis) in place, with one collective
+    a dtype (the tensors flattened into one buffer); ``replicate``: as
+    ``_all_reduce``'s (``False`` for tensors split over the model axis).
+    Returns the tensors."""
     op = dist.ReduceOp.SUM if op is None else op
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        buf = torch.cat([t.reshape(-1) for t in group])
-        _all_reduce(buf, mesh, op)
+    for same in by_dtype.values():
+        buf = torch.cat([t.reshape(-1) for t in same])
+        _all_reduce(buf, mesh, op, group, replicate)
         start = 0
-        for t in group:
+        for t in same:
             t.copy_(buf[start:start + t.numel()].view_as(t))
             start += t.numel()
     return list(tensors)
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: DataMesh) -> list:
-    """``all_reduce_sum`` divided by the world size."""
+    """``all_reduce_sum`` divided by the data axis's size."""
     out = all_reduce_sum(tensors, mesh)
     for t in out:
         t.div_(mesh.world)
@@ -171,14 +249,20 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: DataMesh) -> list:
 def all_reduce_grads(params: Sequence[torch.Tensor], mesh: DataMesh,
                      extra: Sequence[torch.Tensor] = ()) -> None:
     """Sum the parameters' ``.grad`` (zeros where a parameter has none)
-    and ``extra`` tensors over the ranks in one collective; afterwards
-    every rank holds the same gradients."""
-    grads = []
+    and ``extra`` tensors over the data axis in one collective;
+    afterwards every data index holds the same gradients.  The model
+    axis is not summed: its ranks hold the same gradients (copied from
+    model index 0, ``_all_reduce``), or each its own slice's (a
+    parameter split over the model axis, marked ``model_split`` by
+    ``parallel.dp.TPPolicyNet``, summed in a collective of its own)."""
+    grads, split = [], []
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
+        (split if getattr(p, "model_split", False) else grads).append(p.grad)
     all_reduce_sum(grads + list(extra), mesh)
+    if split:
+        all_reduce_sum(split, mesh, replicate=False)
 
 
 def global_sums(values: Sequence[torch.Tensor], mesh: DataMesh | None) -> list:
@@ -202,13 +286,26 @@ def global_mean(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
 
 
 def is_main(mesh: DataMesh | None) -> bool:
-    """Whether this process logs and writes checkpoints: rank 0, or the
-    only process."""
-    return mesh is None or mesh.rank == 0
+    """Whether this process logs and writes checkpoints: process 0, or
+    the only process."""
+    return mesh is None or mesh.process_rank == 0
+
+
+def all_gather_cat(t: torch.Tensor, mesh: DataMesh, axis: int = 0
+                   ) -> torch.Tensor:
+    """Every data index's ``t`` (equal shapes) concatenated along
+    ``axis`` in data-rank order, on every rank (one ``all_gather`` over
+    the data group; ``t`` itself at a data axis of 1)."""
+    if mesh.world == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.world)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
+    return torch.cat(parts, dim=axis)
 
 
 def global_any(flag: torch.Tensor, mesh: DataMesh) -> bool:
-    """Whether ``flag`` (a bool tensor) holds anywhere on any rank."""
+    """Whether ``flag`` (a bool tensor) holds anywhere on any data
+    index."""
     buf = flag.any().to(torch.int32).reshape(1)
     _all_reduce(buf, mesh, dist.ReduceOp.MAX)
     return bool(buf.item())

@@ -74,6 +74,9 @@ class RecordingDraws:
     def normals(self, n, device):
         return self._kept("normals", self.draws.normals(n, device))
 
+    def noise(self, n, device):
+        return self._kept("normals", self.draws.noise(n, device))
+
 
 def _run_chunk(trainer, snap, sample, losses):
     """One ``train_chunk`` with the PER sampler ``sample`` and each

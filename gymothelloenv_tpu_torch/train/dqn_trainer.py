@@ -41,6 +41,27 @@ device, seeded from ``DQNRunConfig.seed``: colours, random-opening counts,
 random legal moves, the epsilon uniforms, the replay's uniforms and the
 noisy nets' normals; and ``random.Random(seed)`` for the pool's draws, as
 JAX.
+
+Under a mesh (``mesh``, a ``parallel.DataMesh``; JAX dqn_trainer.py:113-204,
+:394-524) ``num_envs`` is the global batch and each data index plays its
+``N / S`` games with the per-game draws made at the global shape
+(``train.self_play.ShardedDraws``), so a world-S collection is world 1's
+game for game; the pending pairs and the n-step FIFOs hold the rank's
+games.  With the replicated replay (the default) every rank holds the
+whole ring: each ply's emissions are all-gathered and put back into world
+1's order before the insert (JAX flattens (push, slot, 2N streams) with
+black's N streams first; a rank's own streams are two separated blocks of
+that axis, black's and white's), the minibatch rows are drawn the same
+on every rank, the gradients are data parallel and every rank refreshes
+its replica's priorities from every row's error
+(``agents.dqn.dqn_train_batch(mesh=)``), so the replicas stay bit-equal.
+With ``replay_sharding="per-shard"`` each rank inserts its own games'
+rows into its own ring of ``capacity / S`` and samples through
+``parallel/replay_shards.py``.  ``t`` counts the global transitions, so
+the target sync, the pool's snapshots and epsilon follow world 1's.  The
+ranks of a model axis play the same games as their data index's first.
+Every rank evaluates (with the global draws, the same on every rank) and
+only process 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -60,23 +81,26 @@ from gymothelloenv_tpu_torch.agents.dqn import (DQNConfig, DQNState,
                                                 greedy_legal_action,
                                                 maybe_sync_target)
 from gymothelloenv_tpu_torch.agents.nstep import nstep_init, nstep_push
-from gymothelloenv_tpu_torch.agents.replay import (ReplayConfig,
-                                                   replay_init,
-                                                   replay_insert)
+from gymothelloenv_tpu_torch.agents.replay import (FIELDS, ReplayConfig,
+                                                   insert_emitted,
+                                                   pack_bytes, replay_init,
+                                                   row_layout, unpack_bytes)
 from gymothelloenv_tpu_torch.core.engine import engine_of, get_engine
 from gymothelloenv_tpu_torch.core.state import EnvConfig
 from gymothelloenv_tpu_torch.models.convert import (flax_tree,
                                                     tensors_from_flax)
+from gymothelloenv_tpu_torch.parallel import replay_shards
+from gymothelloenv_tpu_torch.parallel.sharding import (all_gather_cat,
+                                                       all_reduce_sum,
+                                                       check_data_mesh,
+                                                       is_main, mesh_device,
+                                                       place_replicated)
 from gymothelloenv_tpu_torch.policies.scripted import greedy_policy
 from gymothelloenv_tpu_torch.train import tournament
-from gymothelloenv_tpu_torch.train.self_play import Draws
+from gymothelloenv_tpu_torch.train.self_play import Draws, ShardedDraws
 from gymothelloenv_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
-from gymothelloenv_tpu_torch.utils.device import (resolve_device,
-                                                  use_float32)
-
-UNPORTED = ("multi-device DQN and Rainbow training is ROADMAP.md queue 1 "
-            "item 13b")
+from gymothelloenv_tpu_torch.utils.device import use_float32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +120,10 @@ class DQNRunConfig:
     # pool_interval chunks) instead of the live net.
     opponent_pool: int = 0
     pool_interval: int = 100
-    # 'replicated' only; 'per-shard' needs several devices.
+    # Under a mesh: 'replicated' (every rank holds the whole ring; global
+    # sampling, world 1's PER exactly) or 'per-shard' (each rank a ring of
+    # capacity / S of its own games' rows, sampled globally through
+    # parallel/replay_shards.py; for a ring that no longer fits a card).
     replay_sharding: str = "replicated"
 
 
@@ -122,11 +149,28 @@ class DQNRollState:
 _COLOURS = ((0, -1), (1, 1))
 
 
+@dataclasses.dataclass
+class _Rows:
+    """One push's gathered emissions (``agents.nstep.Emitted``'s fields),
+    tensors (slot, N streams, ...)."""
+    board: torch.Tensor
+    turn: torch.Tensor
+    action: torch.Tensor
+    reward: torch.Tensor
+    next_board: torch.Tensor
+    next_turn: torch.Tensor
+    done: torch.Tensor
+    valid: torch.Tensor
+
+
 class DQNTrainer:
     """``device``: where the games, the nets, the replay and the updates
-    run (``None``: the current CUDA card; raises without one).  ``mesh``
-    and ``replay_sharding="per-shard"`` raise (ROADMAP.md queue 1 item
-    13)."""
+    run (``None``: the current CUDA card, or the mesh's; raises without
+    one).  ``mesh``: a ``parallel.DataMesh`` (see the module's
+    docstring); per-shard replay needs one, and a capacity, batch and
+    ``2 * num_envs`` that divide by its data axis, else ``ValueError``
+    (JAX's checks); the minibatch must divide by the data axis under the
+    replicated replay too (each rank takes a contiguous share)."""
 
     def __init__(self, env_cfg: EnvConfig = None, dqn_cfg: DQNConfig = None,
                  rb_cfg: ReplayConfig = None, run_cfg: DQNRunConfig = None,
@@ -138,20 +182,44 @@ class DQNTrainer:
             board_size=self.env_cfg.board_size)
         self.run_cfg = run_cfg or DQNRunConfig()
         self.log_fn = log_fn
-        if mesh is not None:
-            raise NotImplementedError(f"mesh: {UNPORTED}")
+        self.mesh = None if mesh is None else check_data_mesh(mesh)
         if self.run_cfg.replay_sharding not in ("replicated", "per-shard"):
             raise ValueError(self.run_cfg.replay_sharding)
-        if self.run_cfg.replay_sharding == "per-shard":
-            raise NotImplementedError(f"per-shard replay: {UNPORTED}")
-        self.device = resolve_device(device)
+        self._per_shard = self.run_cfg.replay_sharding == "per-shard"
+        if self._per_shard:
+            if mesh is None:
+                raise ValueError("per-shard replay requires a mesh")
+            S = self.mesh.world
+            for name, val in (("capacity", self.rb_cfg.capacity),
+                              ("batch_size", self.dqn_cfg.batch_size),
+                              ("2*num_envs", 2 * self.run_cfg.num_envs)):
+                if val % S:
+                    raise ValueError(f"{name}={val} not divisible by "
+                                     f"data shards {S}")
+            # rb_cfg.capacity is the global capacity; each rank owns an
+            # equal slice of it.
+            self._per_shard_cfg = dataclasses.replace(
+                self.rb_cfg, capacity=self.rb_cfg.capacity // S)
+        self.device = mesh_device(self.mesh, device)
         use_float32()
         self.generator = torch.Generator(self.device).manual_seed(
             self.run_cfg.seed)
+        n = self.run_cfg.num_envs
+        self.local_envs = n
         self.draws = Draws(self.generator)
+        if self.mesh is not None:
+            self.local_envs = self.mesh.shard(n)[0]
+            # Each rank takes a contiguous share of every minibatch: the
+            # batch must split over the data axis (this raises if not).
+            self.mesh.shard(self.dqn_cfg.batch_size)
+            self.draws = ShardedDraws(self.draws, self.mesh, n)
         self._setup_algo()
         self.agent = self._init_agent()
-        self.replay = replay_init(self.rb_cfg, self.device)
+        if self.mesh is not None:
+            place_replicated([self.agent.net, self.agent.target], self.mesh)
+        self.replay = replay_init(
+            self._per_shard_cfg if self._per_shard else self.rb_cfg,
+            self.device)
         self.roll: DQNRollState | None = None
         self.chunk_count = 0
         self.pool: list = []
@@ -177,8 +245,12 @@ class DQNTrainer:
         return dqn_act(net, board, turn, legal, eps, draws)
 
     def _agent_train_batch(self, agent, replay, draws) -> torch.Tensor:
+        if self._per_shard:
+            return replay_shards.dqn_train_batch_pershard(
+                agent, replay, self.dqn_cfg, self._per_shard_cfg, draws,
+                self.mesh)
         return dqn_train_batch(agent, replay, self.dqn_cfg, self.rb_cfg,
-                               draws)
+                               draws, mesh=self.mesh)
 
     @torch.no_grad()
     def _opponent_greedy(self, snap, board, turn, legal) -> torch.Tensor:
@@ -197,7 +269,7 @@ class DQNTrainer:
 
     # -- collection -----------------------------------------------------
     def _init_roll(self) -> DQNRollState:
-        run, n = self.run_cfg, self.run_cfg.num_envs
+        run, n = self.run_cfg, self.local_envs
         b, dev = self.env_cfg.board_size, self.device
         env = self.eng.reset_batch(n, self.env_cfg, dev)
         rand_left = tournament.draw_max_rand_steps(
@@ -314,26 +386,44 @@ class DQNTrainer:
 
     def _insert(self, ems) -> torch.Tensor:
         """One ply's emissions into the replay in JAX's order (push, then
-        window slot, then stream); returns how many were valid (0-d)."""
-        def flat(name):
-            return torch.cat([getattr(e, name).reshape(
-                (-1,) + getattr(e, name).shape[2:]) for e in ems])
-        valid = flat("valid")
-        replay_insert(self.replay, self.rb_cfg, flat("board"), flat("turn"),
-                      flat("action"), flat("reward"), flat("next_board"),
-                      flat("next_turn"), flat("done"), valid)
-        return valid.sum()
+        window slot, then stream); returns how many were valid (0-d, this
+        rank's own under per-shard replay).  On a mesh with the
+        replicated replay the four pushes' (slot, local stream) rows are
+        all-gathered, one collective a ply of their packed bytes, and
+        concatenated on the stream axis in rank order, which is world 1's
+        stream order within each push."""
+        if self._per_shard:
+            return replay_shards.pershard_insert(
+                self.replay, self._per_shard_cfg, ems)
+        if self.mesh is not None:
+            ems = self._gather_emissions(ems)
+        return insert_emitted(self.replay, self.rb_cfg, ems)
+
+    def _gather_emissions(self, ems) -> list:
+        """Every rank's emissions of one ply, the streams in world 1's
+        order: ``_Rows`` of (slot, N streams, ...) tensors, a push each."""
+        names = FIELDS + ("valid",)
+        pushes = torch.stack([pack_bytes([getattr(e, f) for f in names], 2)
+                              for e in ems])
+        full = all_gather_cat(pushes, self.mesh, axis=2)
+        layout = row_layout(self.env_cfg.board_size) + ((torch.bool, ()),)
+        fields = unpack_bytes(full, layout)
+        return [_Rows(**{f: t[i] for f, t in zip(names, fields)})
+                for i in range(len(ems))]
 
     def collect_chunk(self, snap=None) -> int:
         """``chunk_plies`` plies into the replay; returns the number of
-        transitions inserted (the chunk's one host read)."""
+        transitions inserted, over every rank's games on a mesh (the
+        chunk's one host read)."""
         self.ensure_initialized()
         eps = self._epsilon(self.agent.t).to(self.device)
-        added = torch.zeros((), dtype=torch.int64, device=self.device)
+        added = torch.zeros(1, dtype=torch.int64, device=self.device)
         for _ in range(self.run_cfg.chunk_plies):
             self.roll, ems = self._ply(self.roll, eps, snap)
             added += self._insert(ems)
-        return int(added)
+        if self._per_shard:
+            all_reduce_sum([added], self.mesh)
+        return int(added[0])
 
     def updates_per_chunk(self) -> int:
         """JAX's update count a chunk: about one learner transition a ply
@@ -366,10 +456,12 @@ class DQNTrainer:
         interval = self.dqn_cfg.target_update_interval
         maybe_sync_target(self.agent,
                           self.agent.t // interval != t_old // interval)
+        size = (replay_shards.global_size(self.replay, self.mesh)
+                if self._per_shard else self.replay.size)
         self._sync()
         return {"loss": loss, "epsilon": self._epsilon(self.agent.t),
                 "transitions": self.agent.t,
-                "replay_size": self.replay.size,
+                "replay_size": size,
                 "collect_seconds": t1 - t0,
                 "update_seconds": time.perf_counter() - t1,
                 "updates": n_up}
@@ -417,10 +509,13 @@ class DQNTrainer:
         random and greedy, half the games as each colour, with
         ``test_init_rand_steps`` random opening plies.  Every random
         number (openings, the random moves, the epsilon uniforms) comes
-        from ``draws``: the trainer's own by default, ``InjectedDraws`` in
-        the parity tests."""
+        from ``draws``: the trainer's own by default (on a mesh their
+        global stream, so every rank plays the same games),
+        ``InjectedDraws`` in the parity tests."""
         net = self.agent.net
         draws = draws or self.draws
+        if isinstance(draws, ShardedDraws):
+            draws = draws.inner
 
         def act(state, generator=None):
             return self._eval_act(net, state, draws)
@@ -439,6 +534,8 @@ class DQNTrainer:
         return out
 
     def _log(self, step: int, metrics: dict) -> None:
+        if not is_main(self.mesh):
+            return
         if self.log_fn:
             self.log_fn(step, metrics)
         else:
@@ -447,7 +544,10 @@ class DQNTrainer:
 
     def save(self, path: str) -> None:
         """The chunk count, the online params, the optimizer's state in
-        optax's tree and ``extra.t``, as JAX's trainer writes them."""
+        optax's tree and ``extra.t``, as JAX's trainer writes them; on a
+        mesh process 0 alone writes."""
+        if not is_main(self.mesh):
+            return
         net = self.agent.net
         to_tree = functools.partial(flax_tree, net)
         save_checkpoint(path, self.chunk_count, to_tree(),

@@ -547,15 +547,17 @@ class PPOSelfPlayTrainer:
 
     ``mesh``: a ``parallel.DataMesh`` for data-parallel training, one
     process a rank (JAX's ``mesh``: the game batch sharded over ``data``,
-    the params replicated).  ``num_envs`` is the global batch; this rank
-    plays its ``num_envs / world`` games with the collector's draws made
-    at the global shape (``train.self_play.ShardedDraws``), so a world-N
+    the params replicated, also over a ``model`` axis, whose ranks of one
+    data index play the same games).  ``num_envs`` is the global batch;
+    this data index plays its ``num_envs / world`` games with the
+    collector's draws made at the global shape
+    (``train.self_play.ShardedDraws``), so a world-N
     rollout is the world-1 rollout game for game, and the update computes
     the world-1 update (``agents.ppo.ppo_update(mesh=)``).  The params
     start as rank 0's (a broadcast) and stay replicated; evaluation runs
-    whole on every rank (as JAX's replicated evaluation), and only rank 0
-    logs and writes checkpoints.  Another kind of mesh raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 13b)."""
+    whole on every rank (as JAX's replicated evaluation), and only process
+    0 logs and writes checkpoints.  Anything else as ``mesh`` raises
+    ``TypeError``."""
 
     def __init__(self, env_cfg: EnvConfig = None,
                  ppo_cfg: PPOConfig = None,

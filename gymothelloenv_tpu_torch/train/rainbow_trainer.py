@@ -12,8 +12,11 @@ Rainbow's hooks:
     off) forward, pure greedy.
 
 ``RainbowConfig`` carries the fields the collection loop reads from
-``DQNConfig``.  ``mesh`` and ``replay_sharding="per-shard"`` raise
-(ROADMAP.md queue 1 item 13b), as the DQN trainer's do.
+``DQNConfig``.  ``mesh`` and ``replay_sharding="per-shard"`` work as the
+DQN trainer's (JAX rainbow_trainer.py; ``agents.rainbow.
+rainbow_train_batch(mesh=)``, ``parallel.replay_shards.
+rainbow_train_batch_pershard``): a noisy forward's noise is one draw, the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -29,13 +32,15 @@ from gymothelloenv_tpu_torch.agents.rainbow import (RainbowConfig,
 from gymothelloenv_tpu_torch.agents.replay import ReplayConfig
 from gymothelloenv_tpu_torch.core.engine import engine_of
 from gymothelloenv_tpu_torch.core.state import EnvConfig
+from gymothelloenv_tpu_torch.parallel import replay_shards
 from gymothelloenv_tpu_torch.train.dqn_trainer import (DQNRunConfig,
                                                        DQNTrainer)
 
 
 class RainbowTrainer(DQNTrainer):
     """``device``: where the games, the nets, the replay and the updates
-    run (``None``: the current CUDA card; raises without one)."""
+    run (``None``: the current CUDA card, or the mesh's; raises without
+    one).  ``mesh``: as the DQN trainer's."""
 
     def __init__(self, env_cfg: EnvConfig = None,
                  rainbow_cfg: RainbowConfig = None,
@@ -64,8 +69,12 @@ class RainbowTrainer(DQNTrainer):
         return rainbow_act(net, board, turn, legal, draws, self.dqn_cfg)
 
     def _agent_train_batch(self, agent, replay, draws) -> torch.Tensor:
+        if self._per_shard:
+            return replay_shards.rainbow_train_batch_pershard(
+                agent, replay, self.dqn_cfg, self._per_shard_cfg, draws,
+                self.mesh)
         return rainbow_train_batch(agent, replay, self.dqn_cfg, self.rb_cfg,
-                                   draws)
+                                   draws, mesh=self.mesh)
 
     @torch.no_grad()
     def _opponent_greedy(self, snap, board, turn, legal) -> torch.Tensor:

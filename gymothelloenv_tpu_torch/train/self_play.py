@@ -144,9 +144,15 @@ class Draws:
         return torch.rand(n, generator=self.generator, device=device)
 
     def normals(self, n: int, device) -> torch.Tensor:
-        """float32 (n,) standard normals: one noisy forward's factorized
-        noise (``agents.rainbow``), ACKTR's critic noise."""
+        """float32 (n,) standard normals: ACKTR's critic noise, one a
+        rollout row."""
         return torch.randn(n, generator=self.generator, device=device)
+
+    def noise(self, n: int, device) -> torch.Tensor:
+        """float32 (n,) standard normals that are not per game: one noisy
+        forward's factorized noise (``agents.rainbow``), shared by the
+        whole batch (the same stream as ``normals``)."""
+        return self.normals(n, device)
 
     def row_indices(self, n: int, high: int, device) -> torch.Tensor:
         """int64 (n,) uniform in ``[0, high)``, with replacement: GAIL's
@@ -168,8 +174,9 @@ class ShardedDraws:
     world-N collection draws exactly what a world-1 one does, game for
     game.  A draw of ``rows * n_local`` values (a (T, n) rollout's
     flattened rows) is made as ``(rows, N)`` and sliced on the games
-    axis.  Draws that are not per game (replay rows, GAIL's policy rows
-    and mixup weights) pass through whole: every rank draws all of them.
+    axis.  Draws that are not per game (replay rows, a noisy net's noise,
+    GAIL's policy rows and mixup weights) pass through whole: every rank
+    draws all of them.
     ``any`` asks every rank (``global_any``), so the opponent loops run
     as many iterations everywhere as at world 1."""
 
@@ -219,6 +226,9 @@ class ShardedDraws:
     def replay_uniforms(self, n: int, device) -> torch.Tensor:
         return self.inner.replay_uniforms(n, device)
 
+    def noise(self, n: int, device) -> torch.Tensor:
+        return self.inner.noise(n, device)
+
     def row_indices(self, n: int, high: int, device) -> torch.Tensor:
         return self.inner.row_indices(n, high, device)
 
@@ -245,7 +255,8 @@ class InjectedDraws:
     ``rand_left`` (N,) counts (the first for ``selfplay_init``, then one
     per slot's reset), ``legal_index`` (N,) move indices, one per ply
     with random openings, ``replay_uniforms``, one tensor a replay
-    sample, ``normals``, one tensor a ``Draws.normals`` call, and
+    sample, ``normals``, one tensor a ``Draws.normals`` or ``noise``
+    call, and
     ``row_indices``/``mix_uniforms``, one tensor a call of each."""
 
     def __init__(self, colors: Iterable[torch.Tensor],
@@ -295,6 +306,8 @@ class InjectedDraws:
             raise ValueError(f"injected normals {tuple(out.shape)} for a "
                              f"draw of {n}")
         return out
+
+    noise = normals
 
     def row_indices(self, n: int, high: int, device) -> torch.Tensor:
         return next(self._row_indices).to(device=device, dtype=torch.int64)

@@ -251,9 +251,8 @@ class TeacherStudentTrainer:
     both nets start as rank 0's and each role's weighted update sums its
     gradients over the ranks (``agents.ppo.ppo_update(mesh=)``, two
     parameter sets, two gradient all-reduces a minibatch).  Evaluation
-    runs whole on every rank; rank 0 alone logs and saves.  Another kind
-    of mesh raises ``NotImplementedError`` (ROADMAP.md queue 1 item
-    13b)."""
+    runs whole on every rank; process 0 alone logs and saves.  Anything
+    else as ``mesh`` raises ``TypeError``."""
 
     def __init__(self, env_cfg: EnvConfig = None, ppo_cfg: PPOConfig = None,
                  run_cfg: TeacherStudentConfig = None, log_fn=None,

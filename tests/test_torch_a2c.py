@@ -232,7 +232,7 @@ def test_trainer_refuses_what_jax_refuses(field):
 
 
 def test_mesh_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="mesh must be a DataMesh"):
         A2CSelfPlayTrainer(mesh=object(), device="cpu")
 
 

@@ -6,7 +6,7 @@ One gloo cluster of two ranks is spawned for the module (as JAX's
 ``parallel.dryrun.spawn`` with a ``file://`` rendezvous in a temporary
 directory and a time limit.  Each rank runs ``_cluster_task`` below:
 
-  * two updates of every family of ``parallel.dryrun.FAMILIES`` (plain,
+  * two updates of every family of ``parallel.dryrun.ON_POLICY`` (plain,
     time-limited and recurrent PPO, A2C, ACKTR, GAIL, teacher-student);
     world 2 must equal world 1 (run here) to JAX's gate, rtol 5e-3 and
     atol 1e-5 (``assert_tree_allclose``), and tighter, each leaf within
@@ -26,8 +26,11 @@ directory and a time limit.  Each rank runs ``_cluster_task`` below:
   * the collectives' helpers (``assemble_global``, ``all_reduce_mean``,
     ``host_batch_slice``) and ``make_mesh``'s refusal of another backend.
 
-The 13b paths (DQN and Rainbow under a mesh, per-shard replay, their CLI
-flags, ``model_parallel > 1``) still raise, naming the item."""
+The guards of the multi-device off-policy paths and of the model axis
+refuse what JAX's refuse, with JAX's messages
+(``test_mesh_guards_refuse_as_jax``); the paths themselves are
+``tests/test_torch_dp_offpolicy.py``'s and
+``tests/test_torch_replay_shards.py``'s."""
 
 import contextlib
 import dataclasses
@@ -219,7 +222,7 @@ def cluster(tmp_path_factory):
     rec = _jax_record()
     torch.save(rec, tmp / "jax.pt")
     expert = dryrun.write_expert(str(tmp / "expert.npz"))
-    fam_args = {"families": list(dryrun.FAMILIES), "updates": 2,
+    fam_args = {"families": list(dryrun.ON_POLICY), "updates": 2,
                 "size": {}, "expert": expert}
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([TESTS, env.get("PYTHONPATH", "")])
@@ -239,7 +242,7 @@ def world1(cluster):
                                 "cpu", cluster["fam_args"])
 
 
-@pytest.mark.parametrize("family", dryrun.FAMILIES)
+@pytest.mark.parametrize("family", dryrun.ON_POLICY)
 def test_world2_equals_world1(cluster, world1, family):
     got = cluster["ranks"][0]["families"][family]
     want = world1[family]
@@ -266,7 +269,7 @@ def no_mesh(cluster):
     return dryrun.families_task(None, "cpu", cluster["fam_args"])
 
 
-@pytest.mark.parametrize("family", dryrun.FAMILIES)
+@pytest.mark.parametrize("family", dryrun.ON_POLICY)
 def test_world1_mesh_equals_no_mesh(cluster, world1, no_mesh, family):
     """The mesh path at world 1 computes ``mesh=None``'s update: its
     moments and means are the same function in another arithmetic
@@ -397,7 +400,7 @@ def test_make_mesh_and_initialize_without_a_group():
 def test_trainers_check_the_mesh():
     mesh = make_mesh(backend="gloo", device="cpu")
     run = SelfPlayConfig(num_envs=6, num_steps=2, hidden_size=8)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(TypeError, match="mesh must be a DataMesh"):
         PPOSelfPlayTrainer(run_cfg=run, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="not the mesh's"):
         PPOSelfPlayTrainer(run_cfg=run, mesh=mesh, device="cuda")
@@ -410,25 +413,95 @@ def test_trainers_check_the_mesh():
     assert two.shard(6) == (3, 0)
 
 
-def test_13b_paths_still_raise():
-    mesh = make_mesh(backend="gloo", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        make_mesh(backend="gloo", device="cpu", model_parallel=2)
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        DQNTrainer(mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        RainbowTrainer(mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        DQNTrainer(run_cfg=DQNRunConfig(replay_sharding="per-shard"),
-                   device="cpu")
-    argv = ["--device", "cpu", "--num-envs", "8", "--chunk-plies", "8",
-            "--num-chunks", "1", "--replay-size", "4096"]
-    for main in (dqn_train.main, rainbow_train.main):
-        for flag in (["--data-parallel", "2"],
-                     ["--replay-sharding", "per-shard"]):
-            with contextlib.redirect_stdout(io.StringIO()), \
-                    pytest.raises(NotImplementedError, match="item 13b"):
-                main(argv + flag)
+def _guard_cases():
+    """The guards of JAX's multi-device off-policy paths, each as ``(JAX
+    call, port call)``; both must raise the same exception and message
+    (a usage error: ``SystemExit`` and the parser's message)."""
+    from gymothelloenv_tpu.agents.replay import ReplayConfig as JRB
+    from gymothelloenv_tpu.cli import dqn_train as jdqn_cli
+    from gymothelloenv_tpu.cli import rainbow_train as jrainbow_cli
+    from gymothelloenv_tpu.train import dqn_trainer as jdqn
+    from gymothelloenv_tpu.train import rainbow_trainer as jrainbow
+    from gymothelloenv_tpu_torch.agents.replay import ReplayConfig
+
+    per = dict(replay_sharding="per-shard", num_envs=8)
+
+    def trainers(run=per, cap=1024, batch=None, mesh=True, rainbow=False,
+                 shards=2):
+        port_mesh = dataclasses.replace(
+            make_mesh(backend="gloo", device="cpu"), world=shards)
+        jcls = jrainbow.RainbowTrainer if rainbow else jdqn.DQNTrainer
+        cls = RainbowTrainer if rainbow else DQNTrainer
+        algo = {} if batch is None else {
+            ("rainbow_cfg" if rainbow else "dqn_cfg"): _algo_cfg(rainbow,
+                                                                 batch)}
+        jalgo = {} if batch is None else {
+            ("rainbow_cfg" if rainbow else "dqn_cfg"): _algo_cfg(
+                rainbow, batch, jax_side=True)}
+        return (lambda: jcls(run_cfg=jdqn.DQNRunConfig(**run),
+                             rb_cfg=JRB(capacity=cap), **jalgo,
+                             mesh=jax_make_mesh(shards) if mesh else None),
+                lambda: cls(run_cfg=DQNRunConfig(**run),
+                            rb_cfg=ReplayConfig(capacity=cap), **algo,
+                            mesh=port_mesh if mesh else None, device="cpu"))
+
+    argv = ["--num-envs", "8", "--chunk-plies", "8", "--num-chunks", "1",
+            "--replay-size", "4096", "--replay-sharding", "per-shard"]
+    return {
+        "pershard_without_mesh": trainers(mesh=False),
+        "rainbow_pershard_without_mesh": trainers(mesh=False, rainbow=True),
+        "capacity": trainers(cap=1023),
+        "batch_size": trainers(batch=15),
+        "2*num_envs": trainers(run=dict(per, num_envs=3), shards=4),
+        "cli_dqn_pershard": (lambda: jdqn_cli.main(argv),
+                             lambda: dqn_train.main(argv + ["--device",
+                                                            "cpu"])),
+        "cli_rainbow_pershard": (lambda: jrainbow_cli.main(argv),
+                                 lambda: rainbow_train.main(
+                                     argv + ["--device", "cpu"])),
+        "model_parallel": (lambda: jax_make_mesh(1, model_parallel=2),
+                           lambda: make_mesh(backend="gloo", device="cpu",
+                                             model_parallel=2)),
+    }
+
+
+def _algo_cfg(rainbow, batch, jax_side=False):
+    if jax_side:
+        from gymothelloenv_tpu.agents.dqn import DQNConfig as JDQN
+        from gymothelloenv_tpu.agents.rainbow import RainbowConfig as JRC
+        return (JRC if rainbow else JDQN)(batch_size=batch)
+    from gymothelloenv_tpu_torch.agents.dqn import DQNConfig
+    from gymothelloenv_tpu_torch.agents.rainbow import RainbowConfig
+    return (RainbowConfig if rainbow else DQNConfig)(batch_size=batch)
+
+
+GUARDS = ("pershard_without_mesh", "rainbow_pershard_without_mesh",
+          "capacity", "batch_size", "2*num_envs", "cli_dqn_pershard",
+          "cli_rainbow_pershard", "model_parallel")
+
+
+@pytest.mark.parametrize("case", GUARDS)
+def test_mesh_guards_refuse_as_jax(case):
+    """Per-shard replay without a mesh, a capacity, batch or
+    ``2 * num_envs`` that the data shards do not divide, per-shard on
+    either CLI without ``--data-parallel``, and a world that
+    ``model_parallel`` does not divide: the port refuses each as JAX
+    does, with JAX's exception and message (the trainers on a data axis
+    of 2, or 4 for ``2 * num_envs``: JAX's ``make_mesh`` over the suite's
+    virtual devices, the port's a ``DataMesh`` of that world that never
+    reaches a collective)."""
+    jax_call, port_call = _guard_cases()[case]
+    errors = []
+    for call in (jax_call, port_call):
+        with contextlib.redirect_stderr(io.StringIO()) as err, \
+                contextlib.redirect_stdout(io.StringIO()), \
+                pytest.raises((ValueError, SystemExit)) as info:
+            call()
+        msg = (err.getvalue().strip().splitlines()[-1]
+               if info.type is SystemExit else str(info.value))
+        errors.append((info.type, msg.split(": error: ")[-1]))
+    assert errors[0] == errors[1], errors
+    assert errors[1][1]
 
 
 def test_gate_defaults_to_the_card(monkeypatch):

@@ -446,10 +446,15 @@ def test_cli_runs_and_resumes(tmp_path):
     with contextlib.redirect_stdout(io.StringIO()):
         tr2 = dqn_train.main(argv + ["--num-chunks", "1", "--load", ckpt])
     assert tr2.chunk_count == 3 and tr2.agent.t > tr.agent.t
-    for flag in (["--data-parallel", "2"],
-                 ["--replay-sharding", "per-shard"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            dqn_train.main(argv + flag)
+    # A mesh of two ranks needs a group of two; per-shard replay needs a
+    # mesh (JAX's usage error).
+    with pytest.raises(ValueError, match="n_devices=2"):
+        dqn_train.main(argv + ["--data-parallel", "2", "--dist-backend",
+                               "gloo"])
+    with contextlib.redirect_stderr(io.StringIO()) as err, \
+            pytest.raises(SystemExit):
+        dqn_train.main(argv + ["--replay-sharding", "per-shard"])
+    assert "requires --data-parallel" in err.getvalue()
 
 
 def relu_flip_report(threshold=1e-6):

@@ -107,3 +107,16 @@ def test_mesh_trainer_leaves_tf32_off(tf32_on):
                                               hidden_size=8),
                        mesh=make_mesh(backend="gloo", device="cpu"))
     assert _flags() == (False, False)
+
+
+def test_sharded_train_step_leaves_tf32_off(tf32_on):
+    """``parallel.dp.make_sharded_train_step`` builds no trainer, and
+    switches TF32 off itself."""
+    from gymothelloenv_tpu_torch.agents.ppo import PPOConfig
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.parallel import make_mesh
+    from gymothelloenv_tpu_torch.parallel.dp import make_sharded_train_step
+    make_sharded_train_step(make_mesh(backend="gloo", device="cpu"),
+                            EnvConfig(), PPOConfig(), 2)
+    assert _flags() == (False, False)
+

@@ -311,7 +311,7 @@ def test_trainer_refuses_what_jax_refuses(expert, field):
         GAILPPOTrainer(expert_path=expert, gail_run=gr, run_cfg=run,
                        device="cpu")
     assert str(err.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="mesh must be a DataMesh"):
         GAILPPOTrainer(expert_path=expert, mesh=object(), device="cpu")
 
 

@@ -378,7 +378,7 @@ def test_trainer_refuses_what_jax_refuses(field):
 
 
 def test_mesh_and_unknown_towers_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="mesh must be a DataMesh"):
         ACKTRSelfPlayTrainer(mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="mlp"):
         ACKTRSelfPlayTrainer(net="resnet", device="cpu")

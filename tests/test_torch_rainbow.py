@@ -374,14 +374,15 @@ def test_loss_takes_the_row_before_normalizing():
 
 # -- the trainer ---------------------------------------------------------
 
-def _configs(pool=False):
+def _configs(pool=False, interval=100):
     """Self-play, or (``pool``) job 07's mode: the non-learning colour
     played greedily by a frozen snapshot, the protagonist's colour drawn
-    a game."""
+    a game, one pushed every ``interval`` chunks."""
     kw = dict(initial_replay_size=0, batch_size=16,
               target_update_interval=SYNC)
     run = dict(num_envs=N, chunk_plies=PLIES, init_rand_steps=INIT,
-               num_test_games=4, seed=3, opponent_pool=2 if pool else 0)
+               num_test_games=4, seed=3, opponent_pool=2 if pool else 0,
+               pool_interval=interval)
     rb = dict(capacity=CAP, prioritized=True)
     return ((JaxEnvConfig(num_disk_as_reward=True),
              jrainbow.RainbowConfig(**kw), jreplay.ReplayConfig(**rb),
@@ -401,12 +402,15 @@ class _Recording(jrtrain.RainbowTrainer):
 
 
 @functools.cache
-def _jax_chunk(pool=False, chunks=1):
+def _jax_chunk(pool=False, chunks=1, interval=None):
     """``chunks`` JAX chunks with their draws recorded: ``(trainer, draws,
     params before, each update's sampled rows)``; ``trainer.losses`` holds
     each update's loss and KL terms, ``trainer.snapshots`` the params,
-    replay and ``t`` after each chunk.  With ``pool`` the frozen opponent
-    is the initial params."""
+    replay, ``t`` and the pool opponent's params after each chunk.  With
+    ``pool`` and no ``interval`` the frozen opponent is the initial
+    params; with an ``interval`` the chunks run through JAX's ``train``,
+    whose pool takes a snapshot every ``interval`` chunks and draws each
+    chunk's opponent from it."""
     moves, updates = [], []
     real_move = JaxBitEngine.random_legal
     real_sample = jrainbow.replay_sample_idx
@@ -436,22 +440,32 @@ def _jax_chunk(pool=False, chunks=1):
     jrainbow.replay_sample_idx = sample_idx
     jrainbow.rainbow_loss_grads = loss_grads
     try:
-        jcfgs, _ = _configs(pool)
+        jcfgs, _ = _configs(pool, interval or 100)
         tr = _Recording(*jcfgs, log_fn=lambda *a: None)
         tr.act_keys, tr.losses, tr.snapshots = [], [], []
         tr.ensure_initialized()
         params0 = jax.tree.map(np.array, tr.agent.params)
         roll0 = jax.tree.map(np.array, tr.roll)
+        real_chunk = tr._train_chunk
+
+        def chunk(agent, replay, roll, key, snap):
+            out = real_chunk(agent, replay, roll, key, snap)
+            jax.effects_barrier()
+            tr.snapshots.append(dict(
+                replay=jax.tree.map(np.array, out[1]),
+                params=jax.tree.map(np.array, out[0].params),
+                t=int(out[0].t), updates=len(tr.losses),
+                opponent=None if snap is None else jax.tree.map(np.array,
+                                                                snap)))
+            return out
+        tr._train_chunk = chunk
+        if interval is not None:
+            tr.train(num_chunks=chunks, log_every=10 ** 6)
         snap = jax.tree.map(jnp.asarray, params0) if pool else None
-        for c in range(chunks):
+        for c in range(chunks if interval is None else 0):
             tr.agent, tr.replay, tr.roll, _ = tr._train_chunk(
                 tr.agent, tr.replay, tr.roll,
                 jax.random.fold_in(jax.random.PRNGKey(17), c), snap)
-            jax.effects_barrier()
-            tr.snapshots.append(dict(
-                replay=jax.tree.map(np.array, tr.replay),
-                params=jax.tree.map(np.array, tr.agent.params),
-                t=int(tr.agent.t), updates=len(tr.losses)))
     finally:
         JaxBitEngine.random_legal = real_move
         jrainbow.replay_sample_idx = real_sample
@@ -479,8 +493,8 @@ def _jax_chunk(pool=False, chunks=1):
     return tr, draws, params0, [torch.from_numpy(i) for _, i in updates]
 
 
-def _port(draws=None, params=None, pool=False):
-    _, cfgs = _configs(pool)
+def _port(draws=None, params=None, pool=False, interval=100):
+    _, cfgs = _configs(pool, interval)
     tr = RainbowTrainer(*cfgs, log_fn=lambda *a: None, device="cpu")
     if draws is not None:
         tr.draws = draws
@@ -490,24 +504,14 @@ def _port(draws=None, params=None, pool=False):
     return tr
 
 
-def test_pool_chunks_equal_jax(monkeypatch):
-    """Two chunks in job 07's pool mode (a frozen snapshot, the initial
-    params, plays the other colour; the protagonist's colour drawn a
-    game) on PER: 64 plies a chunk at N 8 with 4 random opening plies and
-    64 updates of 16 rows, each chunk crossing a target sync.  After
-    each chunk: the replay rows, write position and size exactly; every
-    update, on the rows and noise JAX drew, its loss to rtol 1e-4 and KL
-    terms to 1e-4; the online params per leaf within 2e-3 of the leaf's
-    largest delta since the start plus 1e-8, the target synced to them;
-    the priorities to 5e-4.  The params' bound: Adam's step is ``m /
-    (sqrt(v) + eps)`` with eps 1.5e-4, so a gradient's float32 error
-    counts ``1 / eps`` in the step where the step's size counts
-    ``1 / |g|``, and the updates carry it on (measured 3.4e-5 and
-    1.4e-4 after 64 and 128 updates; a self-play chunk of 128 updates
-    read 5.5e-4 of ``val_fc.w_sigma``'s largest delta); the losses, which
-    hold to 1e-4 at every update, show the two runs on the same path."""
-    pool = True
-    jtr, draws, params0, jidx = _jax_chunk(pool, 2)
+def _chunk_checker(jtr, draws, params0, jidx, monkeypatch, rtol=2e-3,
+                   rebase=False):
+    """``(tr, check, worst)``: the port's trainer on JAX's draws, params
+    and sampled rows; ``check(c, metrics)``, which holds the state after
+    chunk ``c`` to JAX's snapshot ``c`` as ``test_pool_chunks_equal_jax``
+    says, the params per leaf within ``rtol`` of the leaf's largest
+    delta (since the start, or with ``rebase`` since JAX's params at the
+    chunk's start); and ``worst``, each chunk's largest such ratio."""
     taken, losses = iter(jidx), []
     real_loss = rainbow.rainbow_loss_grads
 
@@ -518,11 +522,16 @@ def test_pool_chunks_equal_jax(monkeypatch):
     monkeypatch.setattr(rainbow, "replay_sample_idx",
                         lambda rb, cfg, u: next(taken).to(torch.int64))
     monkeypatch.setattr(rainbow, "rainbow_loss_grads", loss_grads)
-    tr = _port(draws, params0, pool)
-    snap = tr._snapshot()
-    start, first = _leaves(_port_net(params0)), 0
-    for c, s in enumerate(jtr.snapshots):
-        metrics = tr.train_chunk(snap)
+    run = jtr.run_cfg
+    tr = _port(draws, params0, True, run.pool_interval)
+    start = _leaves(_port_net(params0))
+    worst = []
+
+    def check(c, metrics):
+        s = jtr.snapshots[c]
+        begin = (_leaves(_port_net(jtr.snapshots[c - 1]["params"]))
+                 if rebase and c else start)
+        first = jtr.snapshots[c - 1]["updates"] if c else 0
         rb, jrb = tr.replay, s["replay"]
         size = int(jrb.size)
         assert size > 40 and int(rb.size) == size, c
@@ -541,18 +550,94 @@ def test_pool_chunks_equal_jax(monkeypatch):
             assert loss == pytest.approx(jloss, rel=1e-4), (c, i)
             np.testing.assert_allclose(kl, jkl, rtol=0, atol=1e-4,
                                        err_msg=f"chunk {c} update {i}")
-        first = s["updates"]
         port = _leaves(tr.agent.net)
+        worst.append(0.0)
         for k, w in _leaves(_port_net(s["params"])).items():
-            wd, gd = (w - start[k]).numpy(), (port[k] - start[k]).numpy()
-            assert np.abs(gd - wd).max() <= 2e-3 * np.abs(wd).max() + 1e-8, (
-                c, k)
+            wd, gd = (w - begin[k]).numpy(), (port[k] - begin[k]).numpy()
+            big = np.abs(wd).max()
+            worst[-1] = max(worst[-1], np.abs(gd - wd).max() / big)
+            assert np.abs(gd - wd).max() <= rtol * big + 1e-8, (c, k)
         for a, b in zip(tr.agent.net.parameters(),
                         tr.agent.target.parameters()):
             assert torch.equal(a, b)
         np.testing.assert_allclose(rb.priority[:size].numpy(),
                                    np.asarray(jrb.priority[:size]),
                                    rtol=0, atol=5e-4, err_msg=str(c))
+    return tr, check, worst
+
+
+def test_pool_chunks_equal_jax(monkeypatch):
+    """Two chunks in job 07's pool mode (a frozen snapshot, the initial
+    params, plays the other colour; the protagonist's colour drawn a
+    game) on PER: 64 plies a chunk at N 8 with 4 random opening plies and
+    64 updates of 16 rows, each chunk crossing a target sync.  After
+    each chunk: the replay rows, write position and size exactly; every
+    update, on the rows and noise JAX drew, its loss to rtol 1e-4 and KL
+    terms to 1e-4; the online params per leaf within 2e-3 of the leaf's
+    largest delta since the start plus 1e-8, the target synced to them;
+    the priorities to 5e-4.  The params' bound: Adam's step is ``m /
+    (sqrt(v) + eps)`` with eps 1.5e-4, so a gradient's float32 error
+    counts ``1 / eps`` in the step where the step's size counts
+    ``1 / |g|``, and the updates carry it on (measured 3.4e-5 and
+    1.4e-4 after 64 and 128 updates; a self-play chunk of 128 updates
+    read 5.5e-4 of ``val_fc.w_sigma``'s largest delta); the losses, which
+    hold to 1e-4 at every update, show the two runs on the same path."""
+    jtr, draws, params0, jidx = _jax_chunk(True, 2)
+    tr, check, _ = _chunk_checker(jtr, draws, params0, jidx, monkeypatch)
+    snap = tr._snapshot()
+    for c in range(len(jtr.snapshots)):
+        check(c, tr.train_chunk(snap))
+    with pytest.raises(StopIteration):     # every recorded normal was used
+        draws.normals(1, "cpu")
+
+
+def test_pool_interval_1_chunks_equal_jax(monkeypatch):
+    """Three chunks of the pool mode through both trainers' ``train``
+    with a snapshot pushed after every chunk (``pool_interval=1``, two
+    kept): chunk 1 plays the initial params, chunks 2 and 3 an opponent
+    drawn by the pool's ``random.Random(seed)`` from snapshots that the
+    updates moved, so the pool's push, eviction and draw, and a frozen
+    opponent other than the initial net, are held to JAX's.
+
+    Each chunk starts from JAX's params: after the chunk is checked, the
+    port's online and target nets take JAX's params of that chunk's end,
+    so the snapshot the pool then pushes is JAX's, and each opponent the
+    port plays must equal the one JAX played bit for bit.  Free-running,
+    the third chunk's rows part at one opponent move whose two best
+    expected values lie 2.9e-8 apart, the snapshots differing by 6e-5
+    (float32 rounding carried through 128 updates), so the rows cannot
+    be held exactly past it.  Each chunk is then checked as
+    ``test_pool_chunks_equal_jax`` checks its two, the params per leaf
+    within 2e-2 of the leaf's largest delta since the chunk's start plus
+    1e-8 (measured 7.4e-3 after the first chunk: its 64 updates on this
+    chunk's rows move ``trunk.conv0.weight`` by 2.1e-3 at most, and Adam
+    at eps 1.5e-4 weighs a gradient's rounding by 1 / eps there)."""
+    jtr, draws, params0, jidx = _jax_chunk(True, 3, interval=1)
+    tr, check, worst = _chunk_checker(jtr, draws, params0, jidx,
+                                      monkeypatch, rtol=2e-2, rebase=True)
+    real_chunk, played = tr.train_chunk, []
+
+    def train_chunk(snap=None):
+        c = len(played)
+        played.append(_leaves(snap))
+        metrics = real_chunk(snap)
+        check(c, metrics)
+        for net in (tr.agent.net, tr.agent.target):
+            load_flax_params(net, jtr.snapshots[c]["params"])
+        return metrics
+    tr.train_chunk = train_chunk
+    tr.train(3, log_every=10 ** 6)
+    assert len(played) == 3 and len(tr.pool) == 2
+    start = _leaves(_port_net(params0))
+    moved = []
+    for c, (mine, s) in enumerate(zip(played, jtr.snapshots)):
+        want = _leaves(_port_net(s["opponent"]))
+        assert all(torch.equal(mine[k], w) for k, w in want.items()), c
+        moved.append(max(float((w - start[k]).abs().max())
+                         for k, w in want.items()))
+    # Chunk 2 draws the initial params again, chunk 3 a trained snapshot.
+    assert moved[0] == 0.0 and max(moved[1:]) > 1e-3, moved
+    assert max(worst) > 0.0
     with pytest.raises(StopIteration):     # every recorded normal was used
         draws.normals(1, "cpu")
 
@@ -624,9 +709,12 @@ def test_cli_runs_and_resumes(tmp_path):
         tr2 = rainbow_train.main(argv + ["--num-chunks", "1", "--load",
                                          ckpt])
     assert tr2.chunk_count == 3 and tr2.agent.t > tr.agent.t
-    for flag in (["--data-parallel", "2"],
-                 ["--replay-sharding", "per-shard"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            rainbow_train.main(argv + flag)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="n_devices=2"):
+        rainbow_train.main(argv + ["--data-parallel", "2", "--dist-backend",
+                                   "gloo"])
+    with contextlib.redirect_stderr(io.StringIO()) as err, \
+            pytest.raises(SystemExit):
+        rainbow_train.main(argv + ["--replay-sharding", "per-shard"])
+    assert "requires --data-parallel" in err.getvalue()
+    with pytest.raises(TypeError, match="mesh must be a DataMesh"):
         RainbowTrainer(mesh=object(), device="cpu")

@@ -94,7 +94,7 @@ def test_trainer_rejects_unported_features(field, value):
 
 
 def test_trainer_rejects_mesh_and_a_missing_card(monkeypatch):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="mesh must be a DataMesh"):
         PPOSelfPlayTrainer(mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -151,5 +151,5 @@ def test_cli_runs_warm_starts_and_resumes(tmp_path):
                                str(tmp_path / "ts.teacher"),
                                "--no-train-teacher"])
     assert tr2.chunk_count == 3 and "warm-started" in out.getvalue()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(TypeError, match="mesh must be a DataMesh"):
         ts.TeacherStudentTrainer(mesh=object(), device="cpu")
