@@ -141,6 +141,18 @@ set to 0 just before it and read just after:
     rollout_chunk_sharded at N 4096 over the two ranks against the plain
     rollout on each slice ([dp]; the ranks are child processes, and one
     that fails fails the phase).
+  * the measurement and evaluation tools (gymothelloenv_tpu_torch/
+    scripts/), each through its main at a cut size, full widths: the
+    traces of the PPO update, the train step, the collection and a DQN
+    and a Rainbow chunk (the update names no B1, the others one B1 launch
+    a traced ply, the trace's count equal to the wrapper's), the update,
+    recurrent and train-step profiles, the replay benches (their insert
+    and sample counts exact), the batch-scaling bench, bench_scaling at
+    world 1 and on two gloo ranks sharing the card under torchrun,
+    eval_snapshots = cli/eval_checkpoint at each snapshot's seed,
+    tournament_big's tallies = cli/tournament's at chunk = games, and
+    tournament_ci on its lines; every timing finite and positive
+    ([tools]).
 
 It reads two files outside gymothelloenv_tpu_torch/, the committed
 data/selfplay/ppo_wide2_4k.msgpack (the teacher's warm start, and the
@@ -176,6 +188,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -489,6 +502,21 @@ DP_TP_NORM_RTOL = 1e-2
 # 3.5e-5, within DP_PARAM_RTOL.  The unreduced gradients' fault reads
 # 1.085, so the bound below lies between (PERF.md section 6).
 DP_OFF_PARAM_RTOL = 0.25
+# [tools]: every measurement and evaluation tool of gymothelloenv_tpu_torch/
+# scripts/ through its main at full widths, N and plies cut: TOOLS_N games
+# and TOOLS_T slots or plies a trace and profile, bench_scaling at
+# TOOLS_SCALE_ENVS games a rank and TOOLS_T slots, TOOLS_SNAPSHOT_GAMES
+# games a snapshot, tournament_big on TOOLS_LINEUP (cut from its five
+# policies: a pair's chunk costs its plies' host round trips whatever its
+# games, ~0.5 s, and maximin-3's searches more) at TOOLS_TOURNAMENT_GAMES
+# games a pair in chunks of TOOLS_TOURNAMENT_CHUNK.  The two gloo ranks
+# of bench_scaling start first and run beside the other tools (their
+# processes take ~30 s to start and meet).
+TOOLS_N, TOOLS_T = 256, 8
+TOOLS_SCALE_ENVS = 128
+TOOLS_SNAPSHOT_GAMES = 200
+TOOLS_LINEUP = ("rand", "maximin-1")
+TOOLS_TOURNAMENT_GAMES, TOOLS_TOURNAMENT_CHUNK = 16, 8
 DEVICE_TYPE = "cuda"
 
 
@@ -821,7 +849,12 @@ def main():
     say("[cli and dp slice] wall seconds of its phases: "
         + ", ".join(f"{k} {v:.2f}" for k, v in wall.items()))
     dp_rollout = slice12["dp"].pop("rollout")
-    later = {**slice7, **slice8, **slice9, **slice10, **slice11, **slice12}
+    # 37. tools -------------------------------------------------------------
+    t0 = time.perf_counter()
+    slice13 = {"tools": _tools_phase(torch, tb, legal_mask, step)}
+    say(f"[tools] wall seconds {time.perf_counter() - t0:.2f}")
+    later = {**slice7, **slice8, **slice9, **slice10, **slice11, **slice12,
+             **slice13}
 
     # 11. kernels line --------------------------------------------------------
     rows = [
@@ -897,6 +930,7 @@ def main():
                  "replay_plies", "enjoy_plies", "trace_kernels")},
              dp={k: slice12["dp"][k] for k in (
                  "world1_seconds", "child_bit_step_launches")},
+             tools=slice13["tools"]["b1"],
              **ply["bit_step"]),
         dict(name="reset_where", route="cuda",
              source="gymothelloenv_tpu_torch/csrc/step.cu",
@@ -1655,33 +1689,27 @@ def _maximin_phase(torch, tb, ro, step, dev, gen):
     return dict(launches=launches, timing=timing)
 
 
-def _cuda_events(torch, fn):
-    """The device events (``key_averages``) of the kernels ``fn`` runs,
-    from torch.profiler; empty where the trace shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
-    from gymothelloenv_tpu_torch.scripts.profile_train_step import device_us
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    events = [e for e in averages
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return events or [e for e in averages if device_us(e) > 0]
+def _trace_ops(torch, fn):
+    """The kernels ``fn`` runs (``utils/profiling``: a torch.profiler
+    trace read by ``summarize_trace``), empty where the trace shows
+    none."""
+    from gymothelloenv_tpu_torch.utils import profiling
+    with tempfile.TemporaryDirectory() as trace_dir:
+        profiling.traced_call(fn, trace_dir)
+        return profiling.summarize_trace(trace_dir)
 
 
 def _device_seconds(torch, fn):
     """Summed device time (s) of the kernels ``fn`` runs, from
     torch.profiler; None where the trace shows no device time."""
-    from gymothelloenv_tpu_torch.scripts.profile_train_step import device_us
-    total = sum(device_us(e) for e in _cuda_events(torch, fn)) / 1e6
+    total = sum(o.total_us for o in _trace_ops(torch, fn)) / 1e6
     return total if total > 0 else None
 
 
 def _cuda_kernels(torch, fn):
     """The number of kernels ``fn`` launches (torch.profiler); None where
     the trace shows none."""
-    return sum(e.count for e in _cuda_events(torch, fn)) or None
+    return sum(o.count for o in _trace_ops(torch, fn)) or None
 
 
 def _compare_search(torch, got, want, what):
@@ -2655,10 +2683,8 @@ def _plane_phase(torch, tb, step, dev):
     8 (forced) and 10; then on 8x8 the force_plane collector against the
     BitEngine collector from the same draws, transition for
     transition."""
-    from torch.profiler import ProfilerActivity, profile
     from gymothelloenv_tpu_torch.core.engine import PlaneEngine
     from gymothelloenv_tpu_torch.core.state import EnvConfig
-    from gymothelloenv_tpu_torch.scripts.profile_train_step import device_us
     from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
     from gymothelloenv_tpu_torch.train.self_play import (Draws,
                                                          collect_rollout,
@@ -2705,17 +2731,10 @@ def _plane_phase(torch, tb, step, dev):
         ply()
         torch.cuda.synchronize()
         before = step.bit_step.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            ply()
-            torch.cuda.synchronize()
+        ops = _trace_ops(torch, ply)
         b1 = step.bit_step.launches - before
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not events:
-            events = [e for e in prof.key_averages() if device_us(e) > 0]
-        kernels = sum(e.count for e in events)
-        device_s = sum(device_us(e) for e in events) / 1e6
+        kernels = sum(o.count for o in ops)
+        device_s = sum(o.total_us for o in ops) / 1e6
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(PLANE_TIME_REPS):
@@ -4837,6 +4856,259 @@ def _cli_phase(torch, tb, legal_mask, step, dev):
         f"{b1}, {len(backward)} kernels under backward ops; load_run "
         f"{sorted(series)[:4]}...; plot {plot}")
     return out
+
+
+def _tool(label, main, argv, texts):
+    """``main(argv)`` of a tool with its printed text kept in ``texts``;
+    returns its result."""
+    import io
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        out = main(argv)
+    texts[label] = text.getvalue()
+    return out
+
+
+def _finite_positive(what, values):
+    bad = {k: v for k, v in values.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v)
+                   and v > 0)}
+    require(not bad, f"[tools] {what}: timings not finite and positive: "
+            f"{bad}")
+
+
+def _tools_phase(torch, tb, legal_mask, step):
+    """The measurement and evaluation tools of gymothelloenv_tpu_torch/
+    scripts/ on the card, each through its ``main`` at a cut size (full
+    widths; N and plies cut, see TOOLS_*), with the gates of each: the
+    collection, train-step, DQN and Rainbow traces count one B1 launch a
+    traced ply in the trace, equal to the wrapper's count (for the chunks,
+    one a ply), the update's trace none; every timing finite and
+    positive; the replay bench's insert and sample counts exact;
+    eval_snapshots = cli.eval_checkpoint at each snapshot's seed;
+    tournament_big's tallies the games of each pair, and at chunk = games
+    cli.tournament's; bench_scaling at world 1 on an nccl mesh and on two
+    gloo ranks sharing the card under torchrun (started first, beside the
+    rest).  The counts of K2 and the ply kernel run from 0 over the
+    phase's own process."""
+    t = str(TOOLS_T)
+    say(f"[tools] start: the traces, profiles and benches at N {TOOLS_N}, "
+        f"T {t}; bench_scaling at {TOOLS_SCALE_ENVS} games a rank; "
+        f"eval_snapshots of two wide2 snapshots, {TOOLS_SNAPSHOT_GAMES} "
+        f"games; tournament_big on {','.join(TOOLS_LINEUP)}")
+    texts, seconds = {}, {}
+    child_env = dict(os.environ)
+    child_env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in child_env.get("PYTHONPATH", "").split(
+            os.pathsep) if p])
+    t_ranks = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as log:
+        ranks = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", "-m",
+             "gymothelloenv_tpu_torch.scripts.bench_scaling",
+             str(TOOLS_SCALE_ENVS), t, "--backend=gloo",
+             f"--device={DEVICE_TYPE}:0"],
+            cwd=HERE, env=child_env, stdout=log, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            _zero_counts(legal_mask, step)
+            out = _tools_in_process(torch, tb, legal_mask, step, texts,
+                                    seconds)
+            ranks.wait(timeout=max(1.0, DP_TIMEOUT_S - (
+                time.perf_counter() - t_ranks)))
+        except subprocess.TimeoutExpired:
+            raise RuntimeError("[tools] bench_scaling under torchrun "
+                               f"outlived {DP_TIMEOUT_S} s")
+        finally:
+            if ranks.poll() is None:
+                os.killpg(ranks.pid, 9)
+                ranks.wait()
+        log.seek(0)
+        scale2_text = log.read()
+    seconds["bench_scaling_gloo2"] = time.perf_counter() - t_ranks
+    texts["bench_scaling_gloo2"] = scale2_text
+    eff = re.search(r"weak-scaling efficiency 1 -> 2 devices: "
+                    r"([0-9.]+)%", scale2_text)
+    require(ranks.returncode == 0 and eff is not None,
+            f"[tools] bench_scaling on two gloo ranks: rc "
+            f"{ranks.returncode}:\n{scale2_text[-3000:]}")
+    _finite_positive("bench_scaling", {"world1": out.pop("scale1"),
+                                       "efficiency": float(eff.group(1))})
+    _finite_positive("wall seconds", seconds)
+    say(f"[tools] ok: {out.pop('summary')}; bench_scaling efficiency 1 -> "
+        f"2 gloo ranks {eff.group(1)}%; wall s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items()))
+    out["seconds"] = seconds
+    return out
+
+
+def _tools_in_process(torch, tb, legal_mask, step, texts, seconds):
+    """[tools]' tools in this process, their gates, and the counts of K2
+    and the ply kernel from 0 (``_tools_phase``)."""
+    from gymothelloenv_tpu_torch.cli import eval_checkpoint, tournament
+    from gymothelloenv_tpu_torch.models.convert import flax_tree
+    from gymothelloenv_tpu_torch.scripts import (
+        bench_batch_scaling, bench_replay, bench_replay_parts,
+        bench_scaling, eval_snapshots, profile_ppo_train, profile_recurrent,
+        profile_update_breakdown, tournament_big, tournament_ci,
+        trace_collect, trace_dqn_chunk, trace_rainbow_chunk,
+        trace_train_step, trace_update)
+    from gymothelloenv_tpu_torch.core.state import EnvConfig
+    from gymothelloenv_tpu_torch.train.ppo_trainer import make_network
+    from gymothelloenv_tpu_torch.utils.checkpoint import save_checkpoint
+    from gymothelloenv_tpu_torch.utils.profiling import (B1_KERNEL,
+                                                         kernel_launches)
+    n, t = str(TOOLS_N), str(TOOLS_T)
+    dev_arg = f"--device={DEVICE_TYPE}"
+    trace_dirs = []
+
+    def timed(label, main, argv):
+        t0 = time.perf_counter()
+        result = _tool(label, main, argv, texts)
+        seconds[label] = time.perf_counter() - t0
+        return result
+
+    with _no_plain(tb) as plain_calls, \
+            tempfile.TemporaryDirectory() as tmp:
+        # Traces.
+        upd = timed("trace_update", trace_update.main, [t, n, dev_arg])
+        ts = timed("trace_train_step", trace_train_step.main, [n, dev_arg])
+        col = timed("trace_collect", trace_collect.main, [t, n, dev_arg])
+        chunk_argv = [n, "--batch=4096", "--interval=512", f"--plies={t}",
+                      dev_arg]
+        dqn = timed("trace_dqn_chunk", trace_dqn_chunk.main, chunk_argv)
+        rb = timed("trace_rainbow_chunk", trace_rainbow_chunk.main,
+                   chunk_argv)
+        for r in (upd, ts, col, dqn, rb):
+            trace_dirs.append(r.pop("trace_dir"))
+        b1_upd = kernel_launches(upd["ops"], B1_KERNEL)
+        require(b1_upd == 0 and len(upd["ops"]) >= 3,
+                f"[tools] trace_update: {b1_upd} B1 runs, "
+                f"{len(upd['ops'])} kernels")
+        for label, r in (("trace_train_step", ts), ("trace_collect", col)):
+            require(r["b1_traced"] == r["b1_launches"] > 0,
+                    f"[tools] {label}: the trace holds {r['b1_traced']} "
+                    f"bit_step_kernel runs for {r['b1_launches']} B1 "
+                    "launches")
+        for label, r in (("trace_dqn_chunk", dqn),
+                         ("trace_rainbow_chunk", rb)):
+            require(r["b1_traced"] == r["b1_launches"] == r["plies"]
+                    == TOOLS_T and r["updates"] > 0,
+                    f"[tools] {label}: {r['b1_traced']} traced and "
+                    f"{r['b1_launches']} counted B1 launches for "
+                    f"{r['plies']} plies, {r['updates']} updates")
+        _finite_positive("traces", {
+            "update_wall": upd["wall_s"], "train_step_wall": ts["wall_s"],
+            "collect_ms": col["ms_per_rollout"],
+            "collect_device": col["device_s"], "dqn_device": dqn["device_s"],
+            "rainbow_device": rb["device_s"]})
+        # Profiles.
+        pub = timed("profile_update_breakdown",
+                    profile_update_breakdown.main, [t, n, dev_arg])
+        prec = timed("profile_recurrent", profile_recurrent.main,
+                     [t, n, dev_arg])
+        ppt = timed("profile_ppo_train", profile_ppo_train.main,
+                    [n, f"--num-steps={t}", dev_arg])
+        _finite_positive("profile_update_breakdown", {
+            k: v for k, v in pub.items() if k.endswith("_ms")})
+        _finite_positive("profile_recurrent", {
+            f"{r['what']}_{r.get('mini_batch', '')}": r["sec"]
+            for r in prec})
+        _finite_positive("profile_ppo_train", {
+            k: v for k, v in ppt[0].items() if k != "num_envs"})
+        # Benches.
+        brp = timed("bench_replay", bench_replay.main, [dev_arg])
+        for r in brp:
+            require(r["inserted"] == r["inserted_want"]
+                    and r["write_pos"] == r["write_pos_want"]
+                    and r["sampled"] == r["sampled_want"]
+                    and r["max_index"] < r["inserted"],
+                    f"[tools] bench_replay counts: {r}")
+            _finite_positive("bench_replay", {
+                k: r[k] for k in ("insert_ms", "sample_ms")})
+        parts = timed("bench_replay_parts", bench_replay_parts.main,
+                      [dev_arg])
+        _finite_positive("bench_replay_parts", {
+            k: v for k, v in parts.items() if k.endswith("_ms")
+            or "_ms_" in k})
+        bbs = timed("bench_batch_scaling", bench_batch_scaling.main,
+                    [f"--num-steps={t}", dev_arg, n])
+        _finite_positive("bench_batch_scaling", {
+            k: bbs[0][k] for k in ("ms_per_step", "trans_per_sec")})
+        scale1 = timed("bench_scaling", bench_scaling.main,
+                       [str(TOOLS_SCALE_ENVS), t, "--backend=nccl",
+                        dev_arg])
+        # Evaluation.
+        glob_ = os.path.join(tmp, "run_{step}.msgpack")
+        steps = (100, 200)
+        for i, s in enumerate(steps):
+            net = make_network(EnvConfig(), HIDDEN, WIDTH_MULT, seed=SEED + i,
+                               device=DEVICE_TYPE)
+            save_checkpoint(glob_.format(step=s), s, flax_tree(net))
+        snaps = timed("eval_snapshots", eval_snapshots.main, [
+            "--glob", glob_, "--steps", ",".join(map(str, steps)),
+            "--opponent", "greedy", "--games", str(TOOLS_SNAPSHOT_GAMES),
+            "--seed", str(SEED), "--device", DEVICE_TYPE])
+        for s in steps:
+            direct = _tool("eval_checkpoint", eval_checkpoint.main, [
+                "--load", glob_.format(step=s), "--opponent", "greedy",
+                "--games", str(TOOLS_SNAPSHOT_GAMES), "--seed",
+                str(SEED + s), "--device", DEVICE_TYPE], texts)
+            require(snaps[s] == tuple(direct) and sum(direct)
+                    == TOOLS_SNAPSHOT_GAMES,
+                    f"[tools] eval_snapshots step {s}: {snaps[s]}, "
+                    f"eval_checkpoint --seed {SEED + s}: {direct}")
+        real_lineup = tournament_big.LINEUP
+        tournament_big.LINEUP = TOOLS_LINEUP
+        try:
+            games = str(TOOLS_TOURNAMENT_GAMES)
+            big = timed("tournament_big", tournament_big.main, [
+                "--games", games, "--chunk", str(TOOLS_TOURNAMENT_CHUNK),
+                "--seed", str(SEED), "--device", DEVICE_TYPE])
+            whole = _tool("tournament_big_whole", tournament_big.main, [
+                "--games", games, "--chunk", games, "--maximin3-chunk",
+                games, "--seed", str(SEED), "--device", DEVICE_TYPE],
+                texts)
+        finally:
+            tournament_big.LINEUP = real_lineup
+        cli = _tool("tournament", tournament.main, [
+            "--games", games, "--lineup", ",".join(TOOLS_LINEUP), "--seed",
+            str(SEED), "--device", DEVICE_TYPE], texts)
+        require(all(sum(v) == TOOLS_TOURNAMENT_GAMES for v in big.values())
+                and len(big) == len(TOOLS_LINEUP) ** 2,
+                f"[tools] tournament_big tallies: {big}")
+        require(whole == cli, f"[tools] tournament_big at chunk = games "
+                f"{whole} differs from cli.tournament's {cli}")
+        ci_path = os.path.join(tmp, "tournament_big.log")
+        with open(ci_path, "w") as f:
+            f.write(texts["tournament_big"])
+        ci = _tool("tournament_ci", tournament_ci.main, [ci_path], texts)
+        require(len(ci) == len(big) and "cells consistent with README"
+                in texts["tournament_ci"], f"[tools] tournament_ci: {ci}")
+        torch.cuda.synchronize()
+    for d in trace_dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    counts = _counts(legal_mask, step)
+    require(not plain_calls, f"[tools] a plain ply ran on the card: "
+            f"{plain_calls[:3]}")
+    _require_no_k2(counts["k2_launches"], "tools")
+    require(counts["bit_step_launches"] > 0, "[tools] no B1 launch")
+    b1 = {label: {k: r[k] for k in ("b1_launches", "b1_traced")}
+          for label, r in (("train_step", ts), ("collect", col),
+                           ("dqn_chunk", dqn), ("rainbow_chunk", rb))}
+    b1["update_traced"] = b1_upd
+    summary = ("; ".join(
+        f"{k} {v['b1_traced']} B1 runs traced = {v['b1_launches']} "
+        f"counted" for k, v in b1.items() if isinstance(v, dict))
+        + f"; update trace: {b1_upd} B1; device s: collect "
+        f"{col['device_s']}, dqn chunk {dqn['device_s']}, rainbow chunk "
+        f"{rb['device_s']}; replay insert/sample ms "
+        + ", ".join(f"{'per' if r['prioritized'] else 'uniform'} "
+                    f"{r['insert_ms']}/{r['sample_ms']}" for r in brp)
+        + f"; eval_snapshots = eval_checkpoint at {steps}; tournament_big "
+        f"{len(big)} pairs, whole = cli.tournament; tournament_ci "
+        f"{len(ci)} cells")
+    return dict(counts, b1=b1, scale1=scale1[1], summary=summary)
 
 
 def _dp_phase(torch, tb, ro, legal_mask, step, dev):

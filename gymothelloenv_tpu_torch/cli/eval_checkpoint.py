@@ -99,6 +99,21 @@ def main(argv=None):
     checkpoint."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    t0 = time.time()
+    wins, draws, losses = evaluate_checkpoint(args, parser.error)
+    n = wins + draws + losses
+    print(f"checkpoint vs {args.opponent}: {wins} / {draws} / {losses} "
+          f"(W/D/L over {n} games, half each color)  "
+          f"win%={wins / n:.3f}  [{time.time() - t0:.1f}s]",
+          flush=True)
+    return wins, draws, losses
+
+
+def evaluate_checkpoint(args, error, log=print):
+    """The games of ``main``'s parsed ``args`` (``error`` reports a usage
+    error, ``log`` the loaded checkpoints); returns ``(wins, draws,
+    losses)`` of ``args.load``.  ``FileNotFoundError`` where it is
+    missing."""
     if args.lookahead_depth > 1:
         args.lookahead = True
     device = resolve_device(args.device)
@@ -111,20 +126,20 @@ def main(argv=None):
     opp_is_ckpt = spec.startswith("ckpt:") or spec.endswith(
         (".msgpack", ".pth", ".pt"))
     if args.opp_lookahead_depth and not opp_is_ckpt:
-        parser.error("--opp-lookahead-depth needs a checkpoint opponent "
+        error("--opp-lookahead-depth needs a checkpoint opponent "
                      "(ckpt:<path> / *.msgpack / *.pth)")
     net, desc = load_eval_policy(args.load, cfg, device)
-    print(f"loaded {args.load} ({desc})", flush=True)
+    log(f"loaded {args.load} ({desc})", flush=True)
     recurrent = getattr(net, "recurrent", False)
     opp_net, opp_recurrent = None, False
     opp_la = args.opp_lookahead_depth
     if opp_is_ckpt:
         path = spec.removeprefix("ckpt:")
         opp_net, opp_desc = load_eval_policy(path, cfg, device)
-        print(f"opponent checkpoint {path} ({opp_desc})", flush=True)
+        log(f"opponent checkpoint {path} ({opp_desc})", flush=True)
         opp_recurrent = getattr(opp_net, "recurrent", False)
     if opp_la and opp_recurrent and opp_la != 1:
-        parser.error("recurrent opponents support lookahead depth 1 only")
+        error("recurrent opponents support lookahead depth 1 only")
     # The stateless sides: a tournament policy each.
     opp = act = None
     if opp_net is None:
@@ -139,21 +154,12 @@ def main(argv=None):
                if args.lookahead else net_tournament_policy(net))
     n = args.games // 2
     generator = torch.Generator(device).manual_seed(args.seed)
-    t0 = time.time()
     if recurrent or opp_recurrent:
         wins, draws = _play_stateful(args, cfg, search_cfg, net, opp_net,
                                      act, opp, n, generator, device)
-        losses = 2 * n - wins - draws
-    else:
-        wins, draws, losses = evaluate(act, opp, 2 * n,
-                                       args.init_rand_steps,
-                                       generator=generator, cfg=cfg,
-                                       device=device)
-    print(f"checkpoint vs {args.opponent}: {wins} / {draws} / {losses} "
-          f"(W/D/L over {2 * n} games, half each color)  "
-          f"win%={wins / (2 * n):.3f}  [{time.time() - t0:.1f}s]",
-          flush=True)
-    return wins, draws, losses
+        return wins, draws, 2 * n - wins - draws
+    return evaluate(act, opp, 2 * n, args.init_rand_steps,
+                    generator=generator, cfg=cfg, device=device)
 
 
 def _play_stateful(args, cfg, search_cfg, net, opp_net, act, opp, n,

@@ -28,7 +28,9 @@ evaluation held to JAX's figure by the ladder's two-proportion test at 1%
   ``--chunks`` (300); its evaluations at chunks 200, 225, 250, 275 and
   300 pooled (1000 games against each) against JAX's same five,
   651/1000 vs greedy and 757/1000 vs random
-  (``data/logs/queue/07_rainbow_pool.log``).
+  (``data/logs/queue/07_rainbow_pool.log``); ``--readings 25,50,75,100
+  --chunks 100`` reads the early curve the same way, against 426/800
+  and 542/800.
 - ``--family acktr``: JAX job 08b's first run (``data/queue/done/
   08b_acktr_confirm.job``: ``--net conv --num-envs 1024 --num-steps 16
   --num-updates 600 --entropy-coef 0.05 --kl-clip 0.001 --test-interval
@@ -48,8 +50,9 @@ evaluation held to JAX's figure by the ladder's two-proportion test at 1%
   --num-trajectories 256 --bc-updates 2000 --num-updates 3000 --seed
   41``, N 256, T 64, lr 1e-5) on an expert file the port's script makes
   first (``scripts/make_expert_dataset.py --games 256``: maximin-2,
-  openings unrecorded, seed 0, written to ``--expert``; JAX's file held
-  3449 rows at subsample 4).  Two readings of ``GAIL_GAMES`` games
+  openings unrecorded, seed ``--expert-seed`` (0), written to
+  ``--expert``; JAX's file held 3449 rows at subsample 4).  ``--chunks
+  0`` stops after the BC reading.  Two readings of ``GAIL_GAMES`` games
   against each opponent: after the BC warm-start, against JAX's
   ``BC warm-start eval: {'greedy': 0.48, 'rand': 0.575}``, and after
   the 3000 updates, against its ``final eval: {'greedy': 0.45, 'rand':
@@ -118,9 +121,24 @@ TEACHER = "data/selfplay/ppo_wide2_4k.msgpack"
 TEST_GAMES = 200
 NEVER = 10 ** 9    # a test interval no run reaches
 # JAX's wins and games an opponent.
+# Job 07's win rates a reading, (greedy, rand) at each chunk
+# (data/logs/queue/07_rainbow_pool.log, 200 games each).
+JAX_07 = {25: (0.6, 0.75), 50: (0.51, 0.705), 75: (0.395, 0.615),
+          100: (0.625, 0.64), 125: (0.43, 0.61), 150: (0.48, 0.735),
+          175: (0.665, 0.705), 200: (0.7, 0.76), 225: (0.615, 0.785),
+          250: (0.675, 0.735), 275: (0.58, 0.765), 300: (0.685, 0.74)}
+
+
+def jax_07(readings) -> dict:
+    """Job 07's wins at ``readings`` pooled, ``{opp: (wins, games)}``."""
+    return {opp: (sum(round(JAX_07[c][i] * TEST_GAMES) for c in readings),
+                  TEST_GAMES * len(readings))
+            for i, opp in enumerate(("greedy", "rand"))}
+
+
 JAX = {"ts": {"greedy": (130, 200), "rand": (164, 200)},
        "dqn": {"greedy": (162, 200), "rand": (162, 200)},
-       "rainbow": {"greedy": (651, 1000), "rand": (757, 1000)},
+       "rainbow": jax_07((200, 225, 250, 275, 300)),
        "acktr": {"greedy": (491, 600), "rand": (498, 600)},
        "a2c": {"greedy": (157, 200), "rand": (151, 200)},
        "gail": {"greedy": (90, 200), "rand": (111, 200)},
@@ -198,10 +216,14 @@ def _pooled(trainer, readings, log) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-def _readings(family, cut):
-    """The JAX run's readings up to ``cut``; a shorter rehearsal reads at
-    its last chunk or update."""
-    return [c for c in READINGS[family] if c <= cut] or [cut]
+def _readings(args):
+    """``--readings`` where given, else the JAX run's readings up to
+    ``args.chunks``; a shorter rehearsal reads at its last chunk or
+    update."""
+    if args.readings:
+        return [int(c) for c in args.readings.split(",")]
+    return ([c for c in READINGS[args.family] if c <= args.chunks]
+            or [args.chunks])
 
 
 def _rainbow(args, log):
@@ -214,7 +236,7 @@ def _rainbow(args, log):
                              pool_interval=50, test_interval=NEVER,
                              num_test_games=TEST_GAMES, seed=args.seed),
         log_fn=log, device=args.device)
-    return _pooled(trainer, _readings("rainbow", args.chunks), log)
+    return _pooled(trainer, _readings(args), log)
 
 
 def _acktr(args, log):
@@ -227,7 +249,7 @@ def _acktr(args, log):
                                test_interval=NEVER,
                                num_test_games=TEST_GAMES, seed=args.seed),
         log_fn=log, net="conv", device=args.device)
-    return _pooled(trainer, _readings("acktr", args.chunks), log)
+    return _pooled(trainer, _readings(args), log)
 
 
 def _a2c(args, log):
@@ -246,7 +268,7 @@ def _a2c(args, log):
 
 def _make_expert(args) -> None:
     """JAX's expert file for job 12, unless ``args.expert`` exists: 256
-    maximin-2 games, openings unrecorded, seed 0."""
+    maximin-2 games, openings unrecorded, seed ``args.expert_seed``."""
     import os
 
     from gymothelloenv_tpu_torch.scripts import make_expert_dataset
@@ -254,7 +276,8 @@ def _make_expert(args) -> None:
         return
     os.makedirs(os.path.dirname(os.path.abspath(args.expert)), exist_ok=True)
     make_expert_dataset.main(["--games", "256",
-                              "--search-depth", "2", "--seed", "0",
+                              "--search-depth", "2",
+                              "--seed", str(args.expert_seed),
                               "--device", args.device, "--out",
                               args.expert])
 
@@ -262,14 +285,16 @@ def _make_expert(args) -> None:
 def _gail(args, log, bc_updates=None):
     """Job 12's run (``args.bc_updates`` BC steps, then ``args.chunks``
     GAIL updates); ``{"bc": counts, "final": counts}`` (``"bc"`` only with
-    BC)."""
+    BC, ``"final"`` only with updates)."""
     bc_updates = args.bc_updates if bc_updates is None else bc_updates
     _make_expert(args)
     trainer = GAILPPOTrainer(
         expert_path=args.expert,
         gail_run=GAILRunConfig(num_trajectories=256, subsample_frequency=4),
         env_cfg=EnvConfig(num_disk_as_reward=True),
-        ppo_cfg=PPOConfig(lr=1e-5, num_updates=args.chunks),
+        # The BC reading alone (--chunks 0) keeps job 12's schedule.
+        ppo_cfg=PPOConfig(lr=1e-5, num_updates=args.chunks
+                          or DEFAULTS[args.family][0]),
         run_cfg=SelfPlayConfig(num_envs=args.num_envs, num_steps=64,
                                test_interval=NEVER,
                                num_test_games=GAIL_GAMES, seed=args.seed),
@@ -280,8 +305,9 @@ def _gail(args, log, bc_updates=None):
     if bc_updates:
         trainer.bc_warmstart(bc_updates, log_every=200)
         out["bc"] = _counts(trainer.evaluate())
-    trainer.train(args.chunks, log_every=200)
-    out["final"] = _counts(trainer.evaluate())
+    if args.chunks:
+        trainer.train(args.chunks, log_every=200)
+        out["final"] = _counts(trainer.evaluate())
     return out
 
 
@@ -327,7 +353,20 @@ def main(argv=None) -> list:
     parser.add_argument("--bc-updates", type=int, default=2000,
                         help="gail: the BC warm-start's steps (job 12's "
                              "2000)")
+    parser.add_argument("--expert-seed", type=int, default=0,
+                        help="gail/gail_only: make_expert_dataset's seed "
+                             "for a missing --expert (scripts/"
+                             "expert_seed_scan.py finds the seed of a "
+                             "given row count)")
+    parser.add_argument("--readings", type=str, default=None,
+                        help="rainbow: the chunks to evaluate at, "
+                             "comma-separated multiples of 25 to 300, "
+                             "pooled against job 07's same readings "
+                             "(default 200,225,250,275,300)")
     args = parser.parse_args(argv)
+    if args.readings and (args.family != "rainbow" or not set(
+            _readings(args)) <= set(JAX_07)):
+        parser.error("--readings takes rainbow's multiples of 25 to 300")
     if args.num_envs is None:
         args.num_envs = {"gail": 256, "gail_only": 256,
                          "simple_ppo": 64}.get(args.family, 1024)
@@ -353,10 +392,16 @@ def main(argv=None) -> list:
            "simple_ppo": _simple_ppo}[args.family]
     counts = run(args, log)
     seconds = time.time() - t0
-    readings = counts if "final" in counts else {"final": counts}
+    readings = counts if "final" in counts or "bc" in counts else {
+        "final": counts}
+    jax_final, source = JAX[args.family], SOURCE[args.family]
+    if args.family == "rainbow" and args.readings:
+        jax_final = jax_07(_readings(args))
+        source = ("data/logs/queue/07_rainbow_pool.log (chunks "
+                  f"{args.readings})")
     rows = []
     for reading, got in readings.items():
-        want = JAX_BC if reading == "bc" else JAX[args.family]
+        want = JAX_BC if reading == "bc" else jax_final
         for opp, jax_count in want.items():
             if isinstance(got[opp], tuple):
                 wins, games = got[opp]
@@ -365,7 +410,7 @@ def main(argv=None) -> list:
             row = dict(family=args.family, reading=reading, seed=args.seed,
                        chunks=args.chunks, num_envs=args.num_envs,
                        opponent=opp, wins=wins, games=games,
-                       win_rate=wins / games, source=SOURCE[args.family],
+                       win_rate=wins / games, source=source,
                        seconds=seconds)
             if jax_count is not None:
                 z, p = two_proportion(wins, games, *jax_count)

@@ -6,7 +6,8 @@ Usage: python -m gymothelloenv_tpu_torch.scripts.profile_train_step \
 Builds ``PPOSelfPlayTrainer`` at wide2 (width_mult 2, hidden 1024) with
 the tuned recipe (lr 2.5e-4, entropy 0.01, 4 epochs x 4 minibatches),
 runs one warm-up update, then traces one collection and one
-``ppo_update`` with ``torch.profiler`` (CPU and CUDA activities).  For
+``ppo_update`` with ``torch.profiler`` (``utils/profiling.traced_call``,
+the kernels read from the written trace by ``summarize_trace``).  For
 each phase it prints the wall seconds, the summed device time of its
 kernels, the device's idle share (1 - device time / wall time, an upper
 bound on idleness where kernels overlap), the kernel launches, and the
@@ -19,10 +20,9 @@ off, as the trainer sets it.
 from __future__ import annotations
 
 import sys
-import time
+import tempfile
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from gymothelloenv_tpu_torch.agents.ppo import PPOConfig, ppo_update
 from gymothelloenv_tpu_torch.core.state import EnvConfig
@@ -31,36 +31,17 @@ from gymothelloenv_tpu_torch.ops.shuffle import draw_words
 from gymothelloenv_tpu_torch.train.ppo_trainer import (PPOSelfPlayTrainer,
                                                        SelfPlayConfig)
 from gymothelloenv_tpu_torch.train.self_play import collect_rollout
-from gymothelloenv_tpu_torch.utils.device import use_float32
+from gymothelloenv_tpu_torch.utils.device import describe, use_float32
+from gymothelloenv_tpu_torch.utils.profiling import (report,
+                                                     summarize_trace,
+                                                     traced_call)
 
 
-def device_us(event) -> float:
-    """A profiler event's own device time in us (0 without one)."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, name):
-            return float(getattr(event, name))
-    return 0.0
-
-
-def _report(name: str, prof, wall_s: float, top: int = 8) -> dict:
-    averages = prof.key_averages()
-    events = [e for e in averages
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        # Kernels folded into the operators that launched them: an
-        # operator's self device time is its own kernels' time.
-        events = [e for e in averages if device_us(e) > 0]
-    device_s = sum(device_us(e) for e in events) / 1e6
-    launches = sum(e.count for e in events)
-    idle = 1.0 - device_s / wall_s if wall_s > 0 else float("nan")
-    print(f"[{name}] wall {wall_s:.4f} s, device {device_s:.4f} s in "
-          f"{launches} kernels, device idle share {100 * idle:.1f}%",
-          flush=True)
-    for e in sorted(events, key=device_us, reverse=True)[:top]:
-        print(f"[{name}]   {device_us(e) / 1e3:9.3f} ms  x{e.count:6d}  "
-              f"{e.key[:90]}", flush=True)
-    return dict(wall_s=wall_s, device_s=device_s, launches=launches,
-                idle_share=idle)
+def _traced(name: str, fn) -> dict:
+    """``fn()`` traced in a fresh directory and reported as ``name``."""
+    with tempfile.TemporaryDirectory(prefix="torchtrace_") as trace_dir:
+        _, wall = traced_call(fn, trace_dir)
+        return report(name, summarize_trace(trace_dir), wall)
 
 
 def main(argv=None):
@@ -71,7 +52,7 @@ def main(argv=None):
         raise SystemExit("profile_train_step traces the card; no CUDA "
                          "device is available")
     dev = torch.device("cuda", torch.cuda.current_device())
-    print(f"device: {torch.cuda.get_device_name(dev)}; {use_float32()}; "
+    print(f"device: {describe(dev)}; {use_float32()}; "
           f"N={num_envs}, T={num_steps}, wide2", flush=True)
     ppo_cfg = PPOConfig(lr=2.5e-4, entropy_coef=0.01, num_updates=2)
     trainer = PPOSelfPlayTrainer(
@@ -80,18 +61,14 @@ def main(argv=None):
                        hidden_size=1024, width_mult=2),
         log_fn=lambda step, m: None, device=dev)
     trainer.train(1)                       # warm-up: cuDNN, allocator
-    results = {}
+    results, rollout = {}, {}
     ply0 = (step.bit_step.launches, step.reset_where.launches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        trainer.sp_state, rollout, boot = collect_rollout(
-            trainer.net, trainer.sp_state, trainer.env_cfg, num_steps,
-            trainer.draws)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    collect = results["collect"] = _report("collect", prof, wall)
+
+    def collect():
+        trainer.sp_state, rollout["roll"], rollout["boot"] = \
+            collect_rollout(trainer.net, trainer.sp_state, trainer.env_cfg,
+                            num_steps, trainer.draws)
+    collect = results["collect"] = _traced("collect", collect)
     collect["ply_launches"] = (step.bit_step.launches - ply0[0],
                                step.reset_where.launches - ply0[1])
     print(f"[collect] {collect['launches'] / num_steps:.1f} kernels a slot "
@@ -99,15 +76,9 @@ def main(argv=None):
           f"{collect['ply_launches'][0]} bit_step and "
           f"{collect['ply_launches'][1]} reset_where launches", flush=True)
     words = draw_words(trainer.shuffle_generator, ppo_cfg.ppo_epochs)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        ppo_update(trainer.net, trainer.optimizer, rollout, boot, words,
-                   ppo_cfg)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    results["update"] = _report("update", prof, wall)
+    results["update"] = _traced("update", lambda: ppo_update(
+        trainer.net, trainer.optimizer, rollout["roll"], rollout["boot"],
+        words, ppo_cfg))
     return results
 
 

@@ -2,20 +2,42 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the current CUDA device; it raises when there is no
-    card, so the port never quietly falls back to the CPU.  Pass
-    ``device="cpu"`` to run on the CPU on purpose."""
+    """``None`` means the current CUDA device; it, and a CUDA device asked
+    for by name, raise when there is no card, so the port never quietly
+    falls back to the CPU.  Pass ``device="cpu"`` to run on the CPU on
+    purpose."""
+    if device is not None and torch.device(device).type != "cuda":
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run "
+            "the port on the CPU")
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run "
-                "the port on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def describe(device) -> str:
+    """``cpu``, or the card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` reports them
+    (the name alone where nvidia-smi cannot be run)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", "-i", str(device.index or 0)],
+            capture_output=True, text=True, timeout=30,
+            check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(device)
 
 
 FLOAT32 = "float32, TF32 off for matmul and cuDNN"

@@ -158,6 +158,58 @@ def summarize_trace(trace_dir: str) -> list[OpCost]:
     return sorted(totals.values(), key=lambda c: -c.total_us)
 
 
+# csrc/step.cu's ply kernel sits in an anonymous namespace, so a trace names
+# it ``(anonymous namespace)::bit_step_kernel(...)``: match it anywhere.
+B1_KERNEL = "bit_step_kernel"
+
+
+def kernel_launches(ops: list[OpCost], name: str) -> int:
+    """Runs of the kernels whose name contains ``name``."""
+    return sum(o.count for o in ops if name in o.name)
+
+
+def traced_call(fn, trace_dir: str):
+    """``fn()`` once under ``trace(trace_dir)``; returns ``(out, wall
+    seconds)``, the clock started after the card's earlier work and
+    stopped after the work ``fn`` queued."""
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    sync()
+    with trace(trace_dir):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+    return out, wall
+
+
+def report(name: str, ops: list[OpCost], wall_s: float, top: int = 8
+           ) -> dict:
+    """Print a traced phase's wall seconds, its kernels' summed device
+    time and launches, the device's idle share (1 - device time / wall
+    time, an upper bound on idleness where kernels overlap) and its
+    ``top`` kernels by device time; returns ``{wall_s, device_s,
+    launches, idle_share}``.  A trace with no kernel (a CPU run) has no
+    device time: its device seconds and idle share are ``None``."""
+    if not ops:
+        print(f"[{name}] wall {wall_s:.4f} s; the trace holds no device "
+              "kernel: device time not measured", flush=True)
+        return dict(wall_s=wall_s, device_s=None, launches=0,
+                    idle_share=None)
+    device_s = sum(o.total_us for o in ops) / 1e6
+    launches = sum(o.count for o in ops)
+    idle = 1.0 - device_s / wall_s if wall_s > 0 else float("nan")
+    print(f"[{name}] wall {wall_s:.4f} s, device {device_s:.4f} s in "
+          f"{launches} kernels, device idle share {100 * idle:.1f}%",
+          flush=True)
+    for o in ops[:top]:
+        print(f"[{name}]   {o.total_us / 1e3:9.3f} ms  x{o.count:6d}  "
+              f"{o.name[:90]}", flush=True)
+    return dict(wall_s=wall_s, device_s=device_s, launches=launches,
+                idle_share=idle)
+
+
 def format_op_table(ops: list[OpCost], top: int = 40) -> str:
     """Render ``summarize_trace`` output as an aligned text table."""
     lines = [f"kernel device total: "

@@ -1,4 +1,5 @@
-"""Kernel timers on the card, between CUDA events (card only)."""
+"""Kernel timers on the card, between CUDA events (``call_ms`` and
+``device_ms`` card only; ``mean_ms`` on either device)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,16 @@ def device_ms(fn, reps: int, spin_cycles: int = 100_000_000) -> float:
             f"{reps} launches took {host_ms:.2f} ms to queue, longer than "
             "the GPU spin: the device time would include host gaps")
     return start.elapsed_time(end) / reps
+
+
+def mean_ms(fn, reps: int, device) -> float:
+    """Mean ms a call of ``fn`` over ``reps`` back-to-back calls after one
+    warm-up call: between CUDA events on a card (``call_ms``), on the host
+    clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        return call_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps

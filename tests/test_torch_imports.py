@@ -113,3 +113,32 @@ def test_cli_utility_and_parallel_modules_are_checked_and_import(rel):
     assert rel in {os.path.relpath(p, PORT) for p in _port_files()}
     module = "gymothelloenv_tpu_torch." + rel[:-3].replace("/", ".")
     importlib.import_module(module.removesuffix(".__init__"))
+
+
+_TOOLS = tuple(f"scripts/{name}.py" for name in (
+    "trace_update", "trace_train_step", "trace_collect", "trace_dqn_chunk",
+    "trace_rainbow_chunk", "profile_update_breakdown", "profile_recurrent",
+    "profile_ppo_train", "bench_replay", "bench_replay_parts",
+    "bench_batch_scaling", "bench_scaling", "eval_snapshots",
+    "tournament_big", "tournament_ci", "tool", "expert_seed_scan"))
+
+
+@pytest.mark.parametrize("rel", _TOOLS)
+def test_measurement_tools_are_checked_and_import(rel):
+    """The trace, profile, bench and evaluation tools under
+    ``scripts/`` are among the files above, so none imports JAX or the
+    JAX package, and each imports without a card."""
+    import importlib
+    assert rel in {os.path.relpath(p, PORT) for p in _port_files()}
+    importlib.import_module("gymothelloenv_tpu_torch."
+                            + rel[:-3].replace("/", "."))
+
+
+def test_every_script_is_checked():
+    """Every module under ``gymothelloenv_tpu_torch/scripts/`` is among the
+    files the import rule reads."""
+    checked = {os.path.relpath(p, PORT) for p in _port_files()}
+    scripts = os.path.join(PORT, "scripts")
+    for name in os.listdir(scripts):
+        if name.endswith(".py"):
+            assert f"scripts/{name}" in checked, name

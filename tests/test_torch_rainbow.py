@@ -16,9 +16,12 @@ split in two each); the tests rebuild them from the keys JAX used
 one vector a noisy forward."""
 
 import contextlib
+import copy
+import dataclasses
 import functools
 import io
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -401,96 +404,146 @@ class _Recording(jrtrain.RainbowTrainer):
         return super()._agent_act(params, board, turn, legal, key, eps)
 
 
-@functools.cache
-def _jax_chunk(pool=False, chunks=1, interval=None):
-    """``chunks`` JAX chunks with their draws recorded: ``(trainer, draws,
-    params before, each update's sampled rows)``; ``trainer.losses`` holds
-    each update's loss and KL terms, ``trainer.snapshots`` the params,
-    replay, ``t`` and the pool opponent's params after each chunk.  With
-    ``pool`` and no ``interval`` the frozen opponent is the initial
-    params; with an ``interval`` the chunks run through JAX's ``train``,
-    whose pool takes a snapshot every ``interval`` chunks and draws each
-    chunk's opponent from it."""
-    moves, updates = [], []
-    real_move = JaxBitEngine.random_legal
-    real_sample = jrainbow.replay_sample_idx
-    real_loss = jrainbow.rainbow_loss_grads
+class _JaxPool:
+    """JAX's Rainbow trainer in job 07's pool mode with its draws
+    recorded, built once for the module so that its chunk program is
+    traced and compiled once: every ``run`` starts the trainer from its
+    initial state with its recordings cleared, and calls that program.
 
-    def random_legal(self, keys, state):
-        a = real_move(self, keys, state)
-        io_callback(lambda w0, w1, a: moves.append(
-            (np.stack([w0, w1], -1), np.array(a))), None,
-            state.legal[0], state.legal[1], a, ordered=True)
-        return a
+    ``run(chunks, interval)`` returns ``(trainer, draws, params before,
+    each update's sampled rows)``; ``trainer.losses`` holds each update's
+    loss and KL terms, ``trainer.snapshots`` the params, replay, ``t`` and
+    the pool opponent's params after each chunk (copies of this run's,
+    the live trainer under ``trainer.live``).  With no ``interval`` the
+    frozen opponent is the initial params and each chunk's key JAX's
+    ``fold_in(PRNGKey(17), c)``; with an ``interval`` the chunks run
+    through JAX's ``train``, whose pool takes a snapshot every
+    ``interval`` chunks and draws each chunk's opponent from it.  The
+    trainer's ``pool_interval`` is 1: the chunk program does not read it,
+    ``train`` does."""
 
-    def sample_idx(rb, cfg, key, batch):
-        idx = real_sample(rb, cfg, key, batch)
-        io_callback(lambda u, i: updates.append([np.array(u), np.array(i)]),
-                    None, jax.random.uniform(key, (batch,)), idx,
-                    ordered=True)
-        return idx
-
-    def loss_grads(state, cfg, apply_fn, batch, key):
-        (loss, kl), grads = real_loss(state, cfg, apply_fn, batch, key)
-        io_callback(lambda k, l, d: tr.losses.append(
-            (np.array(k), float(l), np.array(d))), None, key, loss, kl,
-            ordered=True)
-        return (loss, kl), grads
-    JaxBitEngine.random_legal = random_legal
-    jrainbow.replay_sample_idx = sample_idx
-    jrainbow.rainbow_loss_grads = loss_grads
-    try:
-        jcfgs, _ = _configs(pool, interval or 100)
-        tr = _Recording(*jcfgs, log_fn=lambda *a: None)
+    def __init__(self, jcfgs=None):
+        self.moves, self.updates = [], []
+        jcfgs = jcfgs or _configs(True, 1)[0]
+        self.plies = jcfgs[3].chunk_plies
+        tr = self.tr = _Recording(*jcfgs, log_fn=lambda *a: None)
         tr.act_keys, tr.losses, tr.snapshots = [], [], []
         tr.ensure_initialized()
-        params0 = jax.tree.map(np.array, tr.agent.params)
-        roll0 = jax.tree.map(np.array, tr.roll)
+        self.initial = jax.tree.map(np.array, (tr.agent, tr.replay,
+                                               tr.roll))
+        self.key, self.pool_rng = tr.key, copy.deepcopy(tr._pool_rng)
         real_chunk = tr._train_chunk
 
         def chunk(agent, replay, roll, key, snap):
-            out = real_chunk(agent, replay, roll, key, snap)
+            with self._recording():    # read while the program is traced
+                out = real_chunk(agent, replay, roll, key, snap)
             jax.effects_barrier()
             tr.snapshots.append(dict(
                 replay=jax.tree.map(np.array, out[1]),
                 params=jax.tree.map(np.array, out[0].params),
+                target=jax.tree.map(np.array, out[0].target_params),
                 t=int(out[0].t), updates=len(tr.losses),
                 opponent=None if snap is None else jax.tree.map(np.array,
                                                                 snap)))
             return out
         tr._train_chunk = chunk
+        self.runs = {}
+
+    @contextlib.contextmanager
+    def _recording(self):
+        """JAX's random moves, sampled rows and losses recorded by
+        ``io_callback`` into this object's lists."""
+        moves, updates, tr = self.moves, self.updates, self.tr
+        real_move = JaxBitEngine.random_legal
+        real_sample = jrainbow.replay_sample_idx
+        real_loss = jrainbow.rainbow_loss_grads
+
+        def random_legal(engine, keys, state):
+            a = real_move(engine, keys, state)
+            io_callback(lambda w0, w1, a: moves.append(
+                (np.stack([w0, w1], -1), np.array(a))), None,
+                state.legal[0], state.legal[1], a, ordered=True)
+            return a
+
+        def sample_idx(rb, cfg, key, batch):
+            idx = real_sample(rb, cfg, key, batch)
+            io_callback(lambda u, i: updates.append(
+                [np.array(u), np.array(i)]), None,
+                jax.random.uniform(key, (batch,)), idx, ordered=True)
+            return idx
+
+        def loss_grads(state, cfg, apply_fn, batch, key):
+            (loss, kl), grads = real_loss(state, cfg, apply_fn, batch, key)
+            io_callback(lambda k, l, d: tr.losses.append(
+                (np.array(k), float(l), np.array(d))), None, key, loss, kl,
+                ordered=True)
+            return (loss, kl), grads
+        JaxBitEngine.random_legal = random_legal
+        jrainbow.replay_sample_idx = sample_idx
+        jrainbow.rainbow_loss_grads = loss_grads
+        try:
+            yield
+        finally:
+            JaxBitEngine.random_legal = real_move
+            jrainbow.replay_sample_idx = real_sample
+            jrainbow.rainbow_loss_grads = real_loss
+
+    def run(self, chunks, interval=None):
+        if (chunks, interval) in self.runs:
+            return self.runs[chunks, interval]
+        tr = self.tr
+        tr.agent, tr.replay, tr.roll = jax.tree.map(jnp.asarray,
+                                                    self.initial)
+        tr.key, tr._pool_rng = self.key, copy.deepcopy(self.pool_rng)
+        tr.pool, tr.chunk_count = [], 0
+        for recorded in (self.moves, self.updates, tr.act_keys, tr.losses,
+                         tr.snapshots):
+            recorded.clear()
+        params0, _, roll0 = self.initial
+        params0 = params0.params
         if interval is not None:
             tr.train(num_chunks=chunks, log_every=10 ** 6)
-        snap = jax.tree.map(jnp.asarray, params0) if pool else None
-        for c in range(chunks if interval is None else 0):
-            tr.agent, tr.replay, tr.roll, _ = tr._train_chunk(
-                tr.agent, tr.replay, tr.roll,
-                jax.random.fold_in(jax.random.PRNGKey(17), c), snap)
-    finally:
-        JaxBitEngine.random_legal = real_move
-        jrainbow.replay_sample_idx = real_sample
-        jrainbow.rainbow_loss_grads = real_loss
-    assert len(tr.act_keys) == len(moves) == PLIES * chunks
-    sizes = _sizes(RainbowNet())
-    acts = [_jax_noise(k, sizes) for k in tr.act_keys]
-    normals, first = [], 0
-    for c, snapshot in enumerate(tr.snapshots):     # program order
-        normals += acts[c * PLIES:(c + 1) * PLIES]
-        for k, _, _ in tr.losses[first:snapshot["updates"]]:
-            normals += [_jax_noise(s, sizes) for s in jax.random.split(k, 3)]
-        first = snapshot["updates"]
-    colors, rand_left = _reset_draws(jnp.asarray(roll0.env_keys),
-                                     PLIES * chunks)
-    draws = sp.InjectedDraws(
-        colors=[torch.from_numpy(roll0.pcolor)] + list(map(
-            torch.from_numpy, colors)),
-        uniforms=(),
-        rand_left=[torch.from_numpy(roll0.rand_left)] + list(map(
-            torch.from_numpy, rand_left)),
-        legal_index=[_legal_rank(w, m) for w, m in moves],
-        replay_uniforms=[torch.from_numpy(u) for u, _ in updates],
-        normals=normals)
-    return tr, draws, params0, [torch.from_numpy(i) for _, i in updates]
+        else:
+            snap = jax.tree.map(jnp.asarray, params0)
+            for c in range(chunks):
+                tr.agent, tr.replay, tr.roll, _ = tr._train_chunk(
+                    tr.agent, tr.replay, tr.roll,
+                    jax.random.fold_in(jax.random.PRNGKey(17), c), snap)
+        plies = self.plies
+        assert len(tr.act_keys) == len(self.moves) == plies * chunks
+        sizes = _sizes(RainbowNet())
+        acts = [_jax_noise(k, sizes) for k in tr.act_keys]
+        normals, first = [], 0
+        for c, snapshot in enumerate(tr.snapshots):     # program order
+            normals += acts[c * plies:(c + 1) * plies]
+            for k, _, _ in tr.losses[first:snapshot["updates"]]:
+                normals += [_jax_noise(s, sizes)
+                            for s in jax.random.split(k, 3)]
+            first = snapshot["updates"]
+        colors, rand_left = _reset_draws(jnp.asarray(roll0.env_keys),
+                                         plies * chunks)
+        draws = sp.InjectedDraws(
+            colors=[torch.from_numpy(roll0.pcolor)] + list(map(
+                torch.from_numpy, colors)),
+            uniforms=(),
+            rand_left=[torch.from_numpy(roll0.rand_left)] + list(map(
+                torch.from_numpy, rand_left)),
+            legal_index=[_legal_rank(w, m) for w, m in self.moves],
+            replay_uniforms=[torch.from_numpy(u) for u, _ in self.updates],
+            normals=normals)
+        recorded = types.SimpleNamespace(
+            live=tr, run_cfg=dataclasses.replace(
+                tr.run_cfg, pool_interval=interval or 100),
+            losses=list(tr.losses), snapshots=list(tr.snapshots))
+        self.runs[chunks, interval] = (
+            recorded, draws, params0,
+            [torch.from_numpy(i) for _, i in self.updates])
+        return self.runs[chunks, interval]
+
+
+@pytest.fixture(scope="module")
+def jax_pool():
+    return _JaxPool()
 
 
 def _port(draws=None, params=None, pool=False, interval=100):
@@ -566,7 +619,7 @@ def _chunk_checker(jtr, draws, params0, jidx, monkeypatch, rtol=2e-3,
     return tr, check, worst
 
 
-def test_pool_chunks_equal_jax(monkeypatch):
+def test_pool_chunks_equal_jax(monkeypatch, jax_pool):
     """Two chunks in job 07's pool mode (a frozen snapshot, the initial
     params, plays the other colour; the protagonist's colour drawn a
     game) on PER: 64 plies a chunk at N 8 with 4 random opening plies and
@@ -582,7 +635,7 @@ def test_pool_chunks_equal_jax(monkeypatch):
     1.4e-4 after 64 and 128 updates; a self-play chunk of 128 updates
     read 5.5e-4 of ``val_fc.w_sigma``'s largest delta); the losses, which
     hold to 1e-4 at every update, show the two runs on the same path."""
-    jtr, draws, params0, jidx = _jax_chunk(True, 2)
+    jtr, draws, params0, jidx = jax_pool.run(2)
     tr, check, _ = _chunk_checker(jtr, draws, params0, jidx, monkeypatch)
     snap = tr._snapshot()
     for c in range(len(jtr.snapshots)):
@@ -591,7 +644,7 @@ def test_pool_chunks_equal_jax(monkeypatch):
         draws.normals(1, "cpu")
 
 
-def test_pool_interval_1_chunks_equal_jax(monkeypatch):
+def test_pool_interval_1_chunks_equal_jax(monkeypatch, jax_pool):
     """Three chunks of the pool mode through both trainers' ``train``
     with a snapshot pushed after every chunk (``pool_interval=1``, two
     kept): chunk 1 plays the initial params, chunks 2 and 3 an opponent
@@ -612,7 +665,7 @@ def test_pool_interval_1_chunks_equal_jax(monkeypatch):
     1e-8 (measured 7.4e-3 after the first chunk: its 64 updates on this
     chunk's rows move ``trunk.conv0.weight`` by 2.1e-3 at most, and Adam
     at eps 1.5e-4 weighs a gradient's rounding by 1 / eps there)."""
-    jtr, draws, params0, jidx = _jax_chunk(True, 3, interval=1)
+    jtr, draws, params0, jidx = jax_pool.run(3, interval=1)
     tr, check, worst = _chunk_checker(jtr, draws, params0, jidx,
                                       monkeypatch, rtol=2e-2, rebase=True)
     real_chunk, played = tr.train_chunk, []
@@ -642,11 +695,11 @@ def test_pool_interval_1_chunks_equal_jax(monkeypatch):
         draws.normals(1, "cpu")
 
 
-def test_save_load_bytes_equal_jax_both_ways(tmp_path):
+def test_save_load_bytes_equal_jax_both_ways(tmp_path, jax_pool):
     """JAX's checkpoint (params, Adam state, ``extra.t``) loaded by the
     port and written again is the same file; the port's, loaded by JAX's
     trainer and written again, too."""
-    jtr, _, _, _ = _jax_chunk(True, 2)
+    jtr = jax_pool.run(2)[0].live
     jtr.chunk_count = 1
     jax_path, port_path = tmp_path / "jax.msgpack", tmp_path / "port.msgpack"
     jtr.save(str(jax_path))
